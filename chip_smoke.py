@@ -7,20 +7,31 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero before the result line):
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: every kernel of the serving path from `gaussianavatars_torch/csrc`
-     with nvcc (one process per source, started together);
+  2. build: every kernel of the port from `gaussianavatars_torch/csrc` with
+     nvcc (one process per source, started together);
   3. kernel K1 (forward tile blend) against its plain PyTorch version on
      the card: small scenes, an early-out scene, a tile-row slab (max|d| <=
      1e-5) and the full bench stream of the bound avatar (max|d| <= 1e-3,
      the JAX package's own kernel-vs-jnp drift from deep float32 blending);
+     then kernel K2 (its backward) against the plain backward on the same
+     streams with random cotangents, per gradient column max|d| /
+     max|plain| <= 1e-4 (small; the JAX package's backward gate between
+     its backends) and <= 5e-4 (bench stream; its on-device gate at the
+     100k bench);
   4. both checked-in golden renders through the port's rasterizer on the
      card, at the golden tests' tolerances;
-  5. the main path: the FLAME-bound bench avatar (101,440 Gaussians, SH 3)
-     served at 802x550 through `make_render_fn` over all 4 timesteps, with
-     every kernel's launch count read around the run, then ms per render,
-     FPS and the per-stage breakdown (CUDA events);
-  6. K1's time at the bench shapes beside its plain version's and its
-     roofline bound, as one JSON `kernels` line.
+  5. the serving path: the FLAME-bound bench avatar (101,440 Gaussians,
+     SH 3) served at 802x550 through `make_render_fn` over all 4
+     timesteps, with every kernel's launch count read around the run, then
+     ms per render, FPS and the per-stage breakdown (CUDA events);
+  6. the training path: the same avatar trained through `make_train_step`
+     (FLAME finetuning on, L1 + D-SSIM + xyz and scale regularizers, Adam,
+     densification statistics) for 2 warm-up and 20 timed steps cycling
+     the 4 timesteps, with both kernels' launch counts read around the
+     timed steps, finiteness and a falling loss checked, then ms per step
+     and its per-phase breakdown (CUDA events);
+  7. each kernel's time at the bench shapes beside its plain version's and
+     its roofline bound, as one JSON `kernels` line.
 The last line is {"ok": true, "device": {...}}. Nothing here imports JAX.
 """
 
@@ -38,7 +49,10 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL_SMALL = 1e-5
 TOL_BENCH = 1e-3
+TOL_BWD_SMALL = 1e-4
+TOL_BWD_BENCH = 5e-4
 MAIN_PATH_RENDERS = 40        # 10 cycles over the 4 timesteps
+TRAIN_STEPS = 20              # 5 cycles over the 4 timesteps
 
 # NVIDIA H100 SXM published peaks (dense): float32 outside the tensor
 # cores, HBM3 bandwidth, and the SFU rate (16 MUFU ops per SM per clock,
@@ -50,6 +64,10 @@ PEAK_SFU_OPS = 16 * 132 * 1.98e9
 FLOPS_PER_PAIR = 11           # dx, dy and the quadratic
 FLOPS_PER_EXP_PAIR = 2        # opacity * exp, alpha clamp
 FLOPS_PER_BLENDED = 9         # 1 - alpha, T update, weight, 3 color FMAs
+# K2 per blended pair on top of the forward's (see csrc/blend_bwd.cu): c.G
+# 5, S_incl 2, d_color 6, d_alpha 4, d_power 1, d_mean 10, d_conic 11,
+# d_opacity 2
+BWD_FLOPS_PER_BLENDED = FLOPS_PER_BLENDED + 41
 
 
 class SmokeFailure(RuntimeError):
@@ -130,7 +148,7 @@ def main() -> int:
     from gaussianavatars_torch.benchmark import (
         HEIGHT, WIDTH, bench_camera, make_bound_bench_model, make_camera,
     )
-    from gaussianavatars_torch.config import PipelineConfig
+    from gaussianavatars_torch.config import OptimizationConfig, PipelineConfig
     from gaussianavatars_torch.device import resolve_device
     from gaussianavatars_torch.models.gaussians import world_space_gaussians
     from gaussianavatars_torch.ops import tile_blend
@@ -140,7 +158,11 @@ def main() -> int:
     )
     from gaussianavatars_torch.ops.projection import project_gaussians
     from gaussianavatars_torch.ops.rasterize_tiles import rasterize
-    from gaussianavatars_torch.train.loop import camera_arrays, make_render_fn
+    from gaussianavatars_torch.train.loop import (
+        camera_arrays, initial_state, lr_pytree, make_render_fn,
+        make_train_step,
+    )
+    from gaussianavatars_torch.train.optim import tree_leaves
 
     dev = resolve_device("cuda")
 
@@ -189,19 +211,54 @@ def main() -> int:
         check(err <= tol, f"K1 {name}: max|d| {err} above {tol}")
         return err
 
+    def cotangents(args, seed):
+        rng = np.random.default_rng(seed)
+        width, height = args[1], args[2]
+        return (torch.as_tensor(rng.normal(size=(3, height, width)).astype(
+                    np.float32), device=dev),
+                torch.as_tensor(rng.normal(size=(height, width)).astype(
+                    np.float32), device=dev))
+
+    def compare_bwd(name, inst, ranges, args, tol, seed):
+        """K2 against the plain backward; returns (max|d|, the largest
+        per-column max|d| / max|plain|, the plain version's ms)."""
+        color, trans = tile_blend.blend_image_cuda(inst, ranges, *args)
+        g_c, g_t = cotangents(args, seed)
+        out = tile_blend.blend_image_bwd_cuda(inst, ranges, *args, color,
+                                              trans, g_c, g_t)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = tile_blend.blend_image_bwd_plain(inst, ranges, *args, color,
+                                               trans, g_c, g_t)
+        end.record()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K2 {name}: non-finite")
+        diff = (out - ref).abs()
+        rel = float((diff.amax(0) / ref.abs().amax(0).clamp(min=1e-30)).max())
+        err = float(diff.max())
+        print(f"[K2] {name}: {inst.shape[0]} slots, max|d| {err:.3e}, "
+              f"column max|d|/max|plain| {rel:.3e} (limit {tol:.0e}), "
+              f"nonzero slots {int((ref != 0).any(1).sum())}")
+        check(rel <= tol, f"K2 {name}: relative error {rel} above {tol}")
+        return err, rel, start.elapsed_time(end)
+
     small_cam = make_camera(width=48, height=40, device=dev)
-    errs = []
-    for name, scene, ts, window in (
+    errs, bwd_errs = [], []
+    for seed, (name, scene, ts, window) in enumerate((
         ("small tile16", small_scene(128, 0), 16, None),
         ("small tile32", small_scene(128, 4), 32, None),
         ("early-out 0.995", dict(small_scene(128, 9, 0.2, -1.2),
                                  opacities=np.full(128, 0.995, np.float32)),
          16, None),
         ("slab rows 1-2", small_scene(128, 2, 1.0, -2.0), 16, (1, 2)),
-    ):
+    )):
         inst, ranges, args = stream(scene, small_cam, ts,
                                     *(window or (0, None)))
         errs.append(compare(name, inst, ranges, args, TOL_SMALL))
+        bwd_errs.append(compare_bwd(name, inst, ranges, args, TOL_BWD_SMALL,
+                                    seed))
 
     model = make_bound_bench_model(device=dev)
     cam = bench_camera(WIDTH, HEIGHT, device=dev)
@@ -214,6 +271,9 @@ def main() -> int:
         b_inst, b_ranges, b_args = stream(bench_scene, cam, 32, sh_degree=3)
     errs.append(compare("bench stream 802x550", b_inst, b_ranges, b_args,
                         TOL_BENCH))
+    bwd_errs.append(compare_bwd("bench stream 802x550", b_inst, b_ranges,
+                                b_args, TOL_BWD_BENCH, 100))
+    k2_plain_ms = bwd_errs[-1][2]
 
     # ---- 4. goldens on the card ---------------------------------------------
     for fname, scene, camera, atol in (
@@ -235,7 +295,7 @@ def main() -> int:
               f"(atol {atol:.0e}, rtol 1e-4)")
         check(excess <= 0, f"golden {fname} differs")
 
-    # ---- 5. the main path ---------------------------------------------------
+    # ---- 5. the serving path ------------------------------------------------
     render = make_render_fn(model, PipelineConfig(), WIDTH, HEIGHT,
                             model.active_sh_degree)
     ca = camera_arrays(cam)
@@ -300,14 +360,103 @@ def main() -> int:
     print("[stages] ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                       stages.items()))
 
-    # ---- 6. K1 at the bench shapes ------------------------------------------
+    # ---- 6. the training path -----------------------------------------------
+    opt_cfg = OptimizationConfig()
+    state = initial_state(model)
+    flame_fixed = {k: v for k, v in model.flame_param.items()
+                   if k not in state.flame_tr}
+    check(sorted(state.flame_tr) == sorted(
+        ["expr", "rotation", "neck_pose", "jaw_pose", "eyes_pose",
+         "translation"]), f"FLAME trainables {sorted(state.flame_tr)}")
+    lrs = lr_pytree(opt_cfg, 1e-3, state.flame_tr,
+                    model.spatial_lr_scale or 1.0)
+    step = make_train_step(model, opt_cfg, PipelineConfig(), WIDTH, HEIGHT,
+                           model.active_sh_degree, model.num_timesteps)
+    gt = torch.as_tensor(np.random.default_rng(2).random(
+        (3, HEIGHT, WIDTH)).astype(np.float32), device=dev)
+    flame_before = {k: v.clone() for k, v in state.flame_tr.items()}
+
+    def train(state, i, mark=None):
+        return step(state, flame_fixed, model.binding, ca, gt, bg,
+                    i % model.num_timesteps, lrs, mark)
+
+    state, first_losses, _ = train(state, 0)          # warm-up
+    state, _, _ = train(state, 1)
+    torch.cuda.synchronize()
+    counted = {"blend_fwd": tile_blend.blend_image_cuda,
+               "blend_bwd": tile_blend.blend_image_bwd_cuda}
+    for fn in counted.values():
+        fn.launches = 0
+    step_losses = []
+    t_host = time.perf_counter()
+    start.record()
+    for i in range(TRAIN_STEPS):
+        state, losses, total = train(state, i)
+        step_losses.append(losses)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t_host
+    train_launches = {name: fn.launches for name, fn in counted.items()}
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    print(f"[train] {TRAIN_STEPS} steps, launches {train_launches}")
+    for name, n in train_launches.items():
+        check(n == TRAIN_STEPS,
+              f"{name} launched {n} times in {TRAIN_STEPS} steps")
+    for i, losses in enumerate(step_losses):
+        for k, v in losses.items():
+            check(bool(torch.isfinite(v)), f"step {i}: loss {k} is {v}")
+    for leaf in tree_leaves({"gauss": state.params, "flame": state.flame_tr,
+                             "mu": state.mu, "nu": state.nu}):
+        check(bool(torch.isfinite(leaf).all()), "non-finite training state")
+    state, after_losses, _ = train(state, 0)   # the loss after the 20 steps
+    torch.cuda.synchronize()
+    first_total = float(first_losses["total"])
+    after_total = float(after_losses["total"])
+    print(f"[train] timestep 0 loss: first step {first_total:.6f}, after "
+          f"{TRAIN_STEPS + 2} steps {after_total:.6f} ("
+          + ", ".join(f"{k} {float(v):.5f}" for k, v in after_losses.items())
+          + ")")
+    check(after_total < first_total, "the training loss did not fall")
+    visible = state.denom > 0
+    check(bool((state.grad_accum[visible] > 0).any()),
+          "no visible Gaussian accumulated a screen gradient")
+    print(f"[train] {int(visible.sum())} Gaussians seen, grad_accum mean "
+          f"{float(state.grad_accum[visible].mean()):.4e}, max radius "
+          f"{float(state.max_radii2d.max()):.0f} px")
+    for k, before in flame_before.items():
+        check(not torch.equal(state.flame_tr[k], before),
+              f"FLAME {k} did not change")
+    print(f"[train] {step_ms:.3f} ms/step (CUDA events), "
+          f"{1e3 / step_ms:.1f} steps/s; host clock "
+          f"{1e3 * host_s / TRAIN_STEPS:.3f} ms/step; forward-only render "
+          f"{ms:.3f} ms in this call")
+
+    phases = {}
+    for i in range(2 * model.num_timesteps):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        state, _, _ = train(state, i, mark)
+        torch.cuda.synchronize()
+        for (_, a), (name, b) in zip(events, events[1:]):
+            phases[name] = phases.get(name, 0.0) + a.elapsed_time(b)
+    phases = {k: v / (2 * model.num_timesteps) for k, v in phases.items()}
+    print("[train phases] ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                            phases.items()))
+
+    # ---- 7. the kernels at the bench shapes ---------------------------------
+    width, height = b_args[1], b_args[2]
     k1_ms = cuda_ms(lambda: tile_blend.blend_image(b_inst, b_ranges, *b_args),
                     50)
     plain_ms = cuda_ms(lambda: tile_blend.blend_image_plain(
         b_inst, b_ranges, *b_args), 1)
     _, work = tile_blend.blend_image_plain(b_inst, b_ranges, *b_args,
                                            count_work=True)
-    width, height = b_args[1], b_args[2]
     nbytes = (b_inst.numel() + b_ranges.numel() + 4 * width * height) * 4
     flops = (FLOPS_PER_PAIR * work["pairs"] + FLOPS_PER_EXP_PAIR * work["exps"]
              + FLOPS_PER_BLENDED * work["blended"])
@@ -319,6 +468,31 @@ def main() -> int:
           f"fp32 flops {flops}; bound {bound_ms:.4f} ms "
           f"(bytes {t_bytes:.4f}, ops {t_ops:.4f})")
 
+    b_color, b_trans = tile_blend.blend_image_cuda(b_inst, b_ranges, *b_args)
+    b_gc, b_gt = cotangents(b_args, 100)
+    k2_ms = cuda_ms(lambda: tile_blend.blend_image_bwd_cuda(
+        b_inst, b_ranges, *b_args, b_color, b_trans, b_gc, b_gt), 50)
+    _, bwork = tile_blend.blend_image_bwd_plain(
+        b_inst, b_ranges, *b_args, b_color, b_trans, b_gc, b_gt,
+        count_work=True)
+    # stream, ranges and eight image planes in; the (K, 9) gradient out
+    k2_bytes = (2 * b_inst.numel() + b_ranges.numel()
+                + 8 * width * height) * 4
+    k2_flops = (FLOPS_PER_PAIR * bwork["pairs"]
+                + FLOPS_PER_EXP_PAIR * bwork["exps"]
+                + BWD_FLOPS_PER_BLENDED * bwork["blended"])
+    k2_t_bytes = k2_bytes / PEAK_HBM_BYTES * 1e3
+    k2_t_ops = max(k2_flops / PEAK_FP32_FLOPS,
+                   bwork["exps"] / PEAK_SFU_OPS) * 1e3
+    k2_bound_ms = max(k2_t_bytes, k2_t_ops)
+    print(f"[K2] bench: {b_inst.shape[0]} slots, {k2_ms:.4f} ms kernel "
+          f"(with the output's zero fill), {k2_plain_ms:.2f} ms plain; "
+          f"work {bwork}; bytes {k2_bytes}, fp32 flops {k2_flops}; bound "
+          f"{k2_bound_ms:.4f} ms (bytes {k2_t_bytes:.4f}, ops "
+          f"{k2_t_ops:.4f})")
+
+    # no single PyTorch call computes either function (a depth-sorted
+    # front-to-back blend with an early stop, or its VJP), so no library_ms
     kernel_line = {"kernels": [{
         "name": "blend_fwd",
         "route": "cuda",
@@ -330,6 +504,19 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }, {
+        "name": "blend_bwd",
+        "route": "cuda",
+        "source": "gaussianavatars_torch/csrc/blend_bwd.cu",
+        "replaces": "gaussianavatars_tpu/ops/blend_pallas.py:763",
+        "launches": train_launches["blend_bwd"],
+        "max_abs_err": max(e[0] for e in bwd_errs),
+        "max_column_rel_err": max(e[1] for e in bwd_errs),
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound_ms,
+        "bound_by": "bytes" if k2_t_bytes >= k2_t_ops else "operations",
         "library_ms": None,
     }]}
     print(smi)

@@ -32,7 +32,11 @@ import torch
 from gaussianavatars_torch.device import resolve_device
 from gaussianavatars_torch.models.flame import FlameHead
 from gaussianavatars_torch.models.flame_gaussians import FlameGaussianModel
-from gaussianavatars_torch.models.gaussians import GaussianModel, GaussianParams
+from gaussianavatars_torch.models.gaussians import (
+    GaussianModel,
+    GaussianParams,
+    inverse_sigmoid,
+)
 from gaussianavatars_torch.ops.projection import CameraParams
 from gaussianavatars_torch.ops.transforms import (
     camera_center_from_world_view,
@@ -178,7 +182,7 @@ def scene_to_model(scene: dict, sh_degree: int = SH_DEGREE) -> GaussianModel:
     """Wrap a raw scene dict (shs [N, K, 3]) into an unbound GaussianModel."""
     shs = scene["shs"]
     opac = scene["opacities"]
-    return GaussianModel(sh_degree, GaussianParams(
+    model = GaussianModel(sh_degree, GaussianParams(
         xyz=scene["means3d"],
         features_dc=shs[:, 0].contiguous(),
         features_rest=shs[:, 1:].transpose(1, 2).reshape(shs.shape[0], -1),
@@ -186,6 +190,9 @@ def scene_to_model(scene: dict, sh_degree: int = SH_DEGREE) -> GaussianModel:
         rotation=scene["quats"],
         opacity=torch.log(opac / (1 - opac))[:, None],
     ))
+    model.spatial_lr_scale = 1.0
+    model.reset_stats()
+    return model
 
 
 def make_bound_bench_model(sh_degree=SH_DEGREE, n_per_face=10, seed=0,
@@ -250,10 +257,12 @@ def make_bound_bench_model(sh_degree=SH_DEGREE, n_per_face=10, seed=0,
         features_rest=sh[:, 1:].transpose(0, 2, 1).reshape(n, -1),
         scaling=local_scaling,
         rotation=quats,
-        opacity=np.log(opac / (1 - opac))[:, None].astype(np.float32),
+        opacity=inverse_sigmoid(opac)[:, None].astype(np.float32),
     )
     model.params = GaussianParams(**{
         key: torch.as_tensor(np.ascontiguousarray(a), device=dev)
         for key, a in arrays.items()})
     model.binding = torch.as_tensor(binding, device=dev)
+    model.spatial_lr_scale = 1.0
+    model.reset_stats()
     return model

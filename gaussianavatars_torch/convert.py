@@ -2,7 +2,9 @@
 
 `from_jax_arrays` takes the JAX model's state as plain numpy arrays (read
 with `np.asarray` on the JAX side; nothing of JAX is imported here) and
-builds the port's model, so that both packages render the same avatar.
+builds the port's model, so that both packages render the same avatar and,
+with the Adam state and the densification statistics carried too, compute
+the same train step.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from gaussianavatars_torch.models.flame import FlameHead
 from gaussianavatars_torch.models.flame_gaussians import FlameGaussianModel
 from gaussianavatars_torch.models.gaussians import GaussianParams
 
+STATS = ("max_radii2d", "xyz_gradient_accum", "denom")
+
 
 def from_jax_arrays(
     params: dict,
@@ -27,6 +31,10 @@ def from_jax_arrays(
     n_alive: Optional[int] = None,
     flame_model_path: Optional[str] = None,
     flame_template_mesh_path: Optional[str] = None,
+    opt_state: Optional[tuple] = None,
+    stats: Optional[dict] = None,
+    spatial_lr_scale: float = 0.0,
+    not_finetune_flame_params: bool = False,
     device: str | torch.device = "cuda",
 ) -> FlameGaussianModel:
     """Build the port's model from the JAX model's arrays.
@@ -42,13 +50,27 @@ def from_jax_arrays(
         bucket, and the port keeps only the first `n_alive` rows.
       flame_model_path / flame_template_mesh_path: the FLAME pickle and
         template OBJ the JAX head was built from.
+      opt_state: the JAX Adam state as (mu, nu, count), mu and nu each
+        {"gauss": {field: array}, "flame": {key: array}}; it becomes
+        `model.opt_state`, which `train.loop.initial_state` reads.
+      stats: the densification statistics {max_radii2d,
+        xyz_gradient_accum, denom}; zeros when not given.
+      spatial_lr_scale / not_finetune_flame_params: the JAX model's.
       device: where the port's model lives.
+
+    Every per-Gaussian array keeps its first `n_alive` rows.
     """
     dev = resolve_device(device)
     n = len(params["xyz"]) if n_alive is None else n_alive
-    p = GaussianParams(**{
-        k: torch.as_tensor(np.array(params[k][:n], np.float32), device=dev)
-        for k in GaussianParams._fields})
+
+    def rows(a):
+        return torch.as_tensor(np.array(a[:n], np.float32), device=dev)
+
+    def flame(d):
+        return {k: torch.as_tensor(np.array(v, np.float32), device=dev)
+                for k, v in d.items()}
+
+    p = GaussianParams(**{k: rows(params[k]) for k in GaussianParams._fields})
     head = FlameHead(np.shape(flame_param["shape"])[-1],
                      np.shape(flame_param["expr"])[-1],
                      flame_model_path=flame_model_path,
@@ -56,9 +78,20 @@ def from_jax_arrays(
                      device=dev)
     model = FlameGaussianModel(
         sh_degree, head, p,
-        torch.as_tensor(np.array(binding[:n], np.int64), device=dev))
-    model.flame_param = {
-        k: torch.as_tensor(np.array(v, np.float32), device=dev)
-        for k, v in flame_param.items()}
+        torch.as_tensor(np.array(binding[:n], np.int64), device=dev),
+        not_finetune_flame_params=not_finetune_flame_params)
+    model.flame_param = flame(flame_param)
     model.num_timesteps = int(model.flame_param["expr"].shape[0])
+    model.spatial_lr_scale = spatial_lr_scale
+    model.reset_stats()
+    if stats is not None:
+        model.max_radii2d, model.xyz_gradient_accum, model.denom = (
+            rows(stats[k]) for k in STATS)
+    if opt_state is not None:
+        mu, nu, count = opt_state
+        model.opt_state = tuple(
+            {"gauss": GaussianParams(**{k: rows(m["gauss"][k])
+                                        for k in GaussianParams._fields}),
+             "flame": flame(m["flame"])}
+            for m in (mu, nu)) + (int(count),)
     return model

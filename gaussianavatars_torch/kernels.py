@@ -22,7 +22,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"blend_fwd": "blend_fwd.cu"}
+SOURCES = {"blend_fwd": "blend_fwd.cu", "blend_bwd": "blend_bwd.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,6 +1,6 @@
-"""Gaussian splats rigged to a FLAME head (port of the serving subset of
-`gaussianavatars_tpu/models/flame_gaussians.py`; reference
-scene/flame_gaussian_model.py:21-154)."""
+"""Gaussian splats rigged to a FLAME head (port of the render and
+train-step subset of `gaussianavatars_tpu/models/flame_gaussians.py`;
+reference scene/flame_gaussian_model.py:21-154)."""
 
 from __future__ import annotations
 
@@ -17,6 +17,11 @@ from gaussianavatars_torch.models.gaussians import (
 )
 from gaussianavatars_torch.ops.quaternion import rotmat_to_quat_components
 from gaussianavatars_torch.ops.transforms import _safe_normalize
+
+# FLAME parameter groups that get finetuned (reference
+# flame_gaussian_model.py:174-217: pose, translation, expression).
+FINETUNE_KEYS = ("rotation", "neck_pose", "jaw_pose", "eyes_pose",
+                 "translation", "expr")
 
 
 def face_frames_from_verts(verts: torch.Tensor,
@@ -59,10 +64,12 @@ class FlameGaussianModel(GaussianModel):
 
     def __init__(self, sh_degree: int, flame_head: FlameHead,
                  params: Optional[GaussianParams] = None,
-                 binding: Optional[torch.Tensor] = None):
+                 binding: Optional[torch.Tensor] = None,
+                 not_finetune_flame_params: bool = False):
         super().__init__(sh_degree, params)
         self.flame_model = flame_head
         self.binding = binding
+        self.not_finetune_flame_params = not_finetune_flame_params
         self.flame_param: Optional[dict[str, torch.Tensor]] = None
         self.num_timesteps = 1
 
@@ -111,6 +118,17 @@ class FlameGaussianModel(GaussianModel):
                     param[k][i].shape)
         self.flame_param = {k: torch.as_tensor(v, device=self.device)
                             for k, v in param.items()}
+
+    def flame_trainable(self) -> dict:
+        """The finetuned FLAME subset (the model's own tensors; the train
+        step's Adam updates them in place)."""
+        if self.not_finetune_flame_params or self.flame_param is None:
+            return {}
+        return {k: self.flame_param[k] for k in FINETUNE_KEYS}
+
+    def merge_flame_trainable(self, trainable: dict):
+        if self.flame_param is not None:
+            self.flame_param.update(trainable)
 
     def verts_at(self, flame_param: dict, timestep: int):
         """FLAME forward at one timestep: verts [1, V, 3]."""

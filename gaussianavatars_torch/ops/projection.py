@@ -1,5 +1,5 @@
 """Screen-space projection of 3D Gaussians, EWA splatting (port of
-`gaussianavatars_tpu/ops/projection.py`, forward).
+`gaussianavatars_tpu/ops/projection.py`; differentiable through autograd).
 
 Math contract (the upstream Inria design the reference depends on):
   * view-space position p_view = [p, 1] @ viewmatrix (row-vector, transposed
@@ -13,6 +13,10 @@ Math contract (the upstream Inria design the reference depends on):
     by the opacity reach; per-axis extents ext_x/ext_y and the q-threshold
     tau feed the exact tile cull of ops/binning_dense.py
   * color = max(eval_sh(deg, sh, normalize(p - campos)) + 0.5, 0)
+
+Gradient convention: `means2d_offset` is a zeros-valued [N, 2] input added
+to the NDC xy coordinates. Its gradient is the reference's
+`viewspace_points.grad`, the screen gradient that drives densification.
 """
 
 from __future__ import annotations
@@ -134,7 +138,8 @@ def ndc2pix(ndc: torch.Tensor, size) -> torch.Tensor:
 
 
 def project_gaussians(means3d, scales, quats, opacities, shs, sh_degree: int,
-                      camera: CameraParams) -> ProjectedGaussians:
+                      camera: CameraParams,
+                      means2d_offset=None) -> ProjectedGaussians:
     """Project world-space gaussians to screen space.
 
     Args:
@@ -146,6 +151,7 @@ def project_gaussians(means3d, scales, quats, opacities, shs, sh_degree: int,
         K >= (sh_degree+1)^2.
       sh_degree: active SH degree.
       camera: CameraParams.
+      means2d_offset: optional [N, 2] added to the NDC xy.
     """
     n = means3d.shape[0]
     focal_x = camera.width / (2.0 * camera.tan_fovx)
@@ -160,6 +166,8 @@ def project_gaussians(means3d, scales, quats, opacities, shs, sh_degree: int,
     w_safe = torch.where(in_front, p_hom[..., 3], torch.ones_like(depths))
     p_w = 1.0 / (w_safe + 1e-7)
     ndc_xy = p_hom[..., :2] * p_w[..., None]
+    if means2d_offset is not None:
+        ndc_xy = ndc_xy + means2d_offset
     means2d = torch.stack([ndc2pix(ndc_xy[..., 0], camera.width),
                            ndc2pix(ndc_xy[..., 1], camera.height)], dim=-1)
 

@@ -1,10 +1,14 @@
-"""Tile rasterizer, forward: project -> bin -> gather -> blend -> composite
-(port of `gaussianavatars_tpu/ops/rasterize_tiles.py::rasterize`).
+"""Tile rasterizer: project -> bin -> gather -> blend -> composite (port of
+`gaussianavatars_tpu/ops/rasterize_tiles.py::rasterize`), differentiable
+through autograd.
 
   projection  ops/projection.py     per-gaussian elementwise torch
-  binning     ops/binning_dense.py  duplicated-key sort, exact shapes
-  gather      ops/instance_pack.py  one (K, 9) row gather by gaussian id
-  blend       ops/tile_blend.py     kernel K1 on CUDA, plain torch on CPU
+  binning     ops/binning_dense.py  duplicated-key sort, exact shapes; its
+                                    inputs are detached (no gradient)
+  gather      ops/instance_pack.py  one (K, 9) row gather by gaussian id;
+                                    its transpose is autograd's index_add_
+  blend       ops/tile_blend.py     kernels K1 / K2 on CUDA, plain torch on
+                                    CPU, through the autograd `BlendImage`
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ def rasterize(
     tile_size: int = 32,
     tile_row_start: int = 0,
     tile_rows: Optional[int] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
     mark: Optional[Callable[[str], None]] = None,
 ) -> RenderOutput:
     """Tile-based splat render (reference gaussian_renderer/__init__.py:86-94).
@@ -43,19 +48,21 @@ def rasterize(
     `tile_row_start` / `tile_rows` render a window of tile rows (a slab of
     `tile_rows * tile_size` pixel rows starting at pixel row
     `tile_row_start * tile_size`, possibly running past the image bottom;
-    callers crop). `mark`, if
+    callers crop). `means2d_offset` ([N, 2] zeros) is added to the NDC
+    centers; its gradient is the densification signal. `mark`, if
     given, is called with each stage's name as the stage is issued
     ("projection", "binning", "pack_gather", "blend", "composite"); the
     chip smoke test records CUDA events there.
     """
     proj = project_gaussians(means3d, scales, quats, opacities, shs,
-                             sh_degree, camera)
+                             sh_degree, camera, means2d_offset)
     if mark:
         mark("projection")
     binning = bin_gaussians_dense(
-        proj.means2d, proj.depths, proj.radii, proj.valid, proj.conics,
-        proj.tau, proj.ext_x, proj.ext_y, camera.width, camera.height,
-        tile_size, tile_row_start, tile_rows)
+        proj.means2d.detach(), proj.depths.detach(), proj.radii, proj.valid,
+        proj.conics.detach(), proj.tau.detach(), proj.ext_x.detach(),
+        proj.ext_y.detach(), camera.width, camera.height, tile_size,
+        tile_row_start, tile_rows)
     ranges = torch.stack([binning.tile_starts, binning.tile_ends], dim=-1)
     if mark:
         mark("binning")

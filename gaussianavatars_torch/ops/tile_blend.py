@@ -1,12 +1,13 @@
-"""Per-tile front-to-back alpha blending, forward (port of
-`gaussianavatars_tpu/ops/tile_blend.py`; its backward comes with the
-training path).
+"""Per-tile front-to-back alpha blending and its VJP (port of
+`gaussianavatars_tpu/ops/tile_blend.py`).
 
 `blend_image` takes the (K, 9) instance stream of ops/instance_pack.py and
-the per-tile [start, end) ranges of ops/binning_dense.py. A CUDA tensor
-goes to kernel K1 (`csrc/blend_fwd.cu`, the port of
-`blend_pallas.py::blend_image_fwd_pallas`); a CPU tensor goes to the plain
-PyTorch version below. Nothing falls back from one to the other.
+the per-tile [start, end) ranges of ops/binning_dense.py, through the
+autograd function `BlendImage`. On a CUDA tensor the forward is kernel K1
+(`csrc/blend_fwd.cu`, the port of `blend_pallas.py::blend_image_fwd_pallas`)
+and the backward kernel K2 (`csrc/blend_bwd.cu`, the port of
+`blend_pallas.py::blend_image_bwd_pallas`); on a CPU tensor both are the
+plain PyTorch versions below. Nothing falls back from one to the other.
 
 Semantics (the reference CUDA rasterizer's, as `_blend_tile_fwd` in the
 JAX package): pixel coordinates are integer pixel indices (no +0.5);
@@ -14,11 +15,24 @@ power = -1/2 (cxx dx^2 + cyy dy^2) - cxy dx dy with d = mean2d - pixel;
 an instance is skipped when power > 0 or e = opacity exp(power) < 1/255;
 alpha = min(0.99, e); a pixel stops before the instance that would take
 its transmittance T below 1e-4 (the reference's `done` flag).
+
+Gradient semantics (the blueprint's `_blend_tile_bwd`): the backward walks
+each tile front to back again with the forward's carries. With G the color
+cotangent, C_out and T_out the forward outputs, g_T the T cotangent and
+S_incl the inclusive prefix of (c . G) w over the blended instances,
+  d_alpha = (c . G) T_before - (G . C_out + g_T T_out - S_incl) / (1 - alpha)
+(the suffix sum of the back-to-front walk is G . C_out minus the forward
+prefix). d_alpha is zero where the 0.99 clamp is active and for instances
+that are rejected or come after the pixel stops; d_opacity = d_alpha
+exp(power), and mean2d and conic take d_power = d_alpha alpha times the
+partials of the quadratic. The gradient is one (K, 9) row per stream slot,
+in the stream's column layout.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,7 +47,8 @@ T_EPS = 1e-4
 
 def blend_image(inst, ranges, py_offset: int, width: int, height: int,
                 tile_size: int):
-    """Blend the sorted instance stream into an image.
+    """Blend the sorted instance stream into an image (differentiable in
+    `inst`; `ranges` and `py_offset` get no gradient).
 
     Args:
       inst: (K, 9) float32 instance stream (ops/instance_pack.py layout).
@@ -45,18 +60,62 @@ def blend_image(inst, ranges, py_offset: int, width: int, height: int,
     Returns:
       (color [3, height, width] without background, T [height, width]).
     """
+    return BlendImage.apply(inst, ranges, py_offset, width, height,
+                            tile_size)
+
+
+def _route(inst, cuda_fn, plain_fn):
     if inst.device.type == "cuda":
-        return blend_image_cuda(inst, ranges, py_offset, width, height,
-                                tile_size)
+        return cuda_fn
     if inst.device.type == "cpu":
-        return blend_image_plain(inst, ranges, py_offset, width, height,
-                                 tile_size)
+        return plain_fn
     raise ValueError(f"no blend for device {inst.device}")
+
+
+class BlendImage(torch.autograd.Function):
+    """K1 forward and K2 backward on CUDA tensors, the plain versions on
+    CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, inst, ranges, py_offset, width, height, tile_size):
+        fwd = _route(inst, blend_image_cuda, blend_image_plain)
+        color, trans = fwd(inst, ranges, py_offset, width, height, tile_size)
+        ctx.save_for_backward(inst, ranges, color, trans)
+        ctx.static = (py_offset, width, height, tile_size)
+        return color, trans
+
+    @staticmethod
+    def backward(ctx, g_color, g_trans):
+        inst, ranges, color, trans = ctx.saved_tensors
+        bwd = _route(inst, blend_image_bwd_cuda, blend_image_bwd_plain)
+        # autograd may hand over expanded cotangents (g_T of the
+        # `trans * bg` composite)
+        g_inst = bwd(inst, ranges, *ctx.static, color, trans,
+                     g_color.contiguous(), g_trans.contiguous())
+        return g_inst, None, None, None, None, None
 
 
 # ----------------------------------------------------------------------------
 # Kernel K1
 # ----------------------------------------------------------------------------
+
+def _check_stream(inst, ranges, width, height, tile_size):
+    """Raise unless the kernels can take this stream; returns the grid."""
+    ntx, nty = tile_grid(width, height, tile_size)
+    if not (inst.is_cuda and ranges.device == inst.device):
+        raise ValueError("inst and ranges must be CUDA tensors on one device")
+    if inst.dtype != torch.float32 or inst.ndim != 2 \
+            or inst.shape[1] != PACK_COLS or not inst.is_contiguous():
+        raise ValueError(f"inst must be contiguous float32 (K, {PACK_COLS}), "
+                         f"got {inst.dtype} {tuple(inst.shape)}")
+    if ranges.dtype != torch.int32 or tuple(ranges.shape) != (ntx * nty, 2) \
+            or not ranges.is_contiguous():
+        raise ValueError(f"ranges must be contiguous int32 ({ntx * nty}, 2), "
+                         f"got {ranges.dtype} {tuple(ranges.shape)}")
+    if tile_size not in (16, 32):
+        raise ValueError(f"tile_size must be 16 or 32, got {tile_size}")
+    return ntx, nty
+
 
 def _blend_fwd_lib():
     lib = kernels.load("blend_fwd")
@@ -76,19 +135,7 @@ def blend_image_cuda(inst, ranges, py_offset: int, width: int, height: int,
 
     `blend_image_cuda.launches` counts the launches.
     """
-    ntx, nty = tile_grid(width, height, tile_size)
-    if not (inst.is_cuda and ranges.device == inst.device):
-        raise ValueError("inst and ranges must be CUDA tensors on one device")
-    if inst.dtype != torch.float32 or inst.ndim != 2 \
-            or inst.shape[1] != PACK_COLS or not inst.is_contiguous():
-        raise ValueError(f"inst must be contiguous float32 (K, {PACK_COLS}), "
-                         f"got {inst.dtype} {tuple(inst.shape)}")
-    if ranges.dtype != torch.int32 or tuple(ranges.shape) != (ntx * nty, 2) \
-            or not ranges.is_contiguous():
-        raise ValueError(f"ranges must be contiguous int32 ({ntx * nty}, 2), "
-                         f"got {ranges.dtype} {tuple(ranges.shape)}")
-    if tile_size not in (16, 32):
-        raise ValueError(f"tile_size must be 16 or 32, got {tile_size}")
+    ntx, nty = _check_stream(inst, ranges, width, height, tile_size)
     fn = _blend_fwd_lib()
     color = torch.empty((3, height, width), dtype=torch.float32,
                         device=inst.device)
@@ -109,6 +156,58 @@ blend_image_cuda.launches = 0
 
 
 # ----------------------------------------------------------------------------
+# Kernel K2
+# ----------------------------------------------------------------------------
+
+def _blend_bwd_lib():
+    lib = kernels.load("blend_bwd")
+    fn = lib.blend_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def blend_image_bwd_cuda(inst, ranges, py_offset: int, width: int,
+                         height: int, tile_size: int, color, trans, g_color,
+                         g_trans):
+    """`blend_image`'s VJP on the GPU through kernel K2 (one launch).
+
+    Returns the (K, 9) per-slot gradient; slots no tile walks stay 0.
+    `blend_image_bwd_cuda.launches` counts the launches.
+    """
+    ntx, nty = _check_stream(inst, ranges, width, height, tile_size)
+    for name, t, shape in (("color", color, (3, height, width)),
+                           ("trans", trans, (height, width)),
+                           ("g_color", g_color, (3, height, width)),
+                           ("g_trans", g_trans, (height, width))):
+        if t.device != inst.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+                             f"{inst.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    fn = _blend_bwd_lib()
+    grad = torch.zeros_like(inst)
+    with torch.cuda.device(inst.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(inst.data_ptr(), ranges.data_ptr(), ntx * nty, ntx, width,
+                 height, tile_size, int(py_offset), color.data_ptr(),
+                 trans.data_ptr(), g_color.data_ptr(), g_trans.data_ptr(),
+                 grad.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"blend_bwd kernel launch failed: CUDA error {err}")
+    blend_image_bwd_cuda.launches += 1
+    return grad
+
+
+blend_image_bwd_cuda.launches = 0
+
+
+# ----------------------------------------------------------------------------
 # Plain version
 # ----------------------------------------------------------------------------
 
@@ -124,55 +223,156 @@ def blend_image_plain(inst, ranges, py_offset: int, width: int, height: int,
     evaluated before each pixel stops (`pairs`), those with power <= 0 that
     need an exp (`exps`) and those blended (`blended`).
     """
-    dev = inst.device
-    ntx, nty = tile_grid(width, height, tile_size)
-    num_tiles, p = ntx * nty, tile_size * tile_size
-    ly, lx = torch.meshgrid(torch.arange(tile_size, device=dev),
-                            torch.arange(tile_size, device=dev),
-                            indexing="ij")
-    tiles = torch.arange(num_tiles, device=dev)
-    xs = (tiles % ntx * tile_size)[:, None] + lx.reshape(1, p)
-    ys = (tiles // ntx * tile_size)[:, None] + ly.reshape(1, p)
-    px = xs.to(torch.float32)
-    py = (ys + py_offset).to(torch.float32)
-
-    starts = ranges[:, 0].long()
-    counts = (ranges[:, 1] - ranges[:, 0]).long()
-    max_count = int(counts.max()) if num_tiles else 0
-
-    trans = torch.ones((num_tiles, p), dtype=torch.float32, device=dev)
-    color = torch.zeros((num_tiles, 3, p), dtype=torch.float32, device=dev)
-    done = ~((xs < width) & (ys < height))
+    g = _TileGrid(inst, ranges, py_offset, width, height, tile_size)
+    trans = torch.ones((g.num_tiles, g.p), dtype=torch.float32,
+                       device=inst.device)
+    color = torch.zeros((g.num_tiles, 3, g.p), dtype=torch.float32,
+                        device=inst.device)
+    done = g.outside.clone()
     work = {"pairs": 0, "exps": 0, "blended": 0}
-    for j in range(max_count):
+    for j in range(g.max_count):
         if j % 64 == 0 and bool(done.all()):
             break
-        live = (j < counts)[:, None] & ~done                      # [T, P]
-        rows = inst[torch.clamp(starts + j, max=inst.shape[0] - 1)]  # [T, 9]
+        s = g.step(j, trans, done)
+        color = color + s.rows[:, 5:8, None] * s.w[:, None, :]
+        trans = torch.where(s.blend, s.test_t, trans)
+        done = done | s.stop
+        if count_work:
+            _count(work, s)
+
+    out = (g.untile(color), g.untile(trans[:, None])[0])
+    return (out, work) if count_work else out
+
+
+def blend_image_bwd_plain(inst, ranges, py_offset: int, width: int,
+                          height: int, tile_size: int, color, trans, g_color,
+                          g_trans, count_work: bool = False):
+    """`blend_image`'s VJP in plain PyTorch on any device: the (K, 9)
+    per-slot gradient (port of the blueprint's `_blend_image_bwd`).
+
+    Walks instance position j of every tile's range at once, front to
+    back, re-deciding every accept, reject and stop as the forward did (so
+    the same rounding as kernels K1 and K2), carrying T and the inclusive
+    prefix S_incl. `count_work` also returns the work these inputs need,
+    as in `blend_image_plain`.
+    """
+    g = _TileGrid(inst, ranges, py_offset, width, height, tile_size)
+    out_c, out_t = g.retile(color), g.retile(trans[None])[:, 0]
+    g_c, g_t = g.retile(g_color), g.retile(g_trans[None])[:, 0]
+    s_rest = (g_c * out_c).sum(1) + g_t * out_t        # G . C_out + g_T T_out
+    grad = torch.zeros_like(inst)
+    trans_t = torch.ones_like(out_t)
+    s_incl = torch.zeros_like(out_t)
+    done = g.outside.clone()
+    work = {"pairs": 0, "exps": 0, "blended": 0}
+    for j in range(g.max_count):
+        if j % 64 == 0 and bool(done.all()):
+            break
+        s = g.step(j, trans_t, done)
+        r = s.rows
+        cg = (r[:, 5:8, None] * g_c).sum(1)                       # [T, P]
+        s_incl = s_incl + cg * s.w
+        d_alpha = torch.where(
+            s.blend & (s.e < ALPHA_MAX),
+            cg * trans_t - (s_rest - s_incl) / (1.0 - s.alpha),
+            torch.zeros_like(trans_t))
+        d_power = d_alpha * s.alpha
+        dx, dy = s.dx, s.dy
+        cxx, cxy, cyy = r[:, 2:3], r[:, 3:4], r[:, 4:5]
+        rows_grad = torch.stack([
+            (d_power * -(cxx * dx + cxy * dy)).sum(1),
+            (d_power * -(cyy * dy + cxy * dx)).sum(1),
+            (d_power * (-0.5 * dx * dx)).sum(1),
+            (d_power * (-dx * dy)).sum(1),
+            (d_power * (-0.5 * dy * dy)).sum(1),
+            *(s.w[:, None, :] * g_c).sum(2).unbind(1),
+            (d_alpha * s.ex).sum(1),
+        ], dim=1)                                                  # [T, 9]
+        walked = j < g.counts
+        grad[(g.starts + j)[walked]] = rows_grad[walked]
+        trans_t = torch.where(s.blend, s.test_t, trans_t)
+        done = done | s.stop
+        if count_work:
+            _count(work, s)
+    return (grad, work) if count_work else grad
+
+
+class _Step(NamedTuple):
+    """Instance position j of every tile against the tile's pixels."""
+
+    rows: torch.Tensor    # [T, 9] the instance (clamped past the range)
+    dx: torch.Tensor      # [T, P] mean2d - pixel
+    dy: torch.Tensor
+    power: torch.Tensor
+    ex: torch.Tensor      # exp(min(power, 0))
+    e: torch.Tensor       # opacity * ex
+    alpha: torch.Tensor   # min(0.99, e)
+    live: torch.Tensor    # in range and the pixel not stopped
+    test_t: torch.Tensor  # T (1 - alpha)
+    stop: torch.Tensor    # accepted, and would take T below 1e-4
+    blend: torch.Tensor   # accepted and blended
+    w: torch.Tensor       # alpha T where blended, else 0
+
+
+class _TileGrid:
+    """Pixel coordinates and ranges of every tile, [T, P] batched."""
+
+    def __init__(self, inst, ranges, py_offset, width, height, tile_size):
+        dev = inst.device
+        self.inst = inst
+        self.width, self.height, self.ts = width, height, tile_size
+        self.ntx, self.nty = tile_grid(width, height, tile_size)
+        self.num_tiles, self.p = self.ntx * self.nty, tile_size * tile_size
+        ly, lx = torch.meshgrid(torch.arange(tile_size, device=dev),
+                                torch.arange(tile_size, device=dev),
+                                indexing="ij")
+        tiles = torch.arange(self.num_tiles, device=dev)
+        xs = (tiles % self.ntx * tile_size)[:, None] + lx.reshape(1, self.p)
+        ys = (tiles // self.ntx * tile_size)[:, None] + ly.reshape(1, self.p)
+        self.px = xs.to(torch.float32)
+        self.py = (ys + py_offset).to(torch.float32)
+        self.outside = ~((xs < width) & (ys < height))
+        self.starts = ranges[:, 0].long()
+        self.counts = (ranges[:, 1] - ranges[:, 0]).long()
+        self.max_count = int(self.counts.max()) if self.num_tiles else 0
+
+    def step(self, j, trans, done) -> _Step:
+        live = (j < self.counts)[:, None] & ~done
+        rows = self.inst[torch.clamp(self.starts + j,
+                                     max=self.inst.shape[0] - 1)]
         mx, my = rows[:, 0:1], rows[:, 1:2]
         cxx, cxy, cyy = rows[:, 2:3], rows[:, 3:4], rows[:, 4:5]
-        dx = mx - px
-        dy = my - py
+        dx = mx - self.px
+        dy = my - self.py
         power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
-        e = rows[:, 8:9] * torch.exp(torch.clamp(power, max=0.0))
+        ex = torch.exp(torch.clamp(power, max=0.0))
+        e = rows[:, 8:9] * ex
         alpha = torch.clamp(e, max=ALPHA_MAX)
         ok = live & (power <= 0.0) & (e >= ALPHA_MIN)
         test_t = trans * (1.0 - alpha)
         stop = ok & (test_t < T_EPS)
         blend = ok & ~stop
         w = torch.where(blend, alpha * trans, torch.zeros_like(trans))
-        color = color + rows[:, 5:8, None] * w[:, None, :]
-        trans = torch.where(blend, test_t, trans)
-        done = done | stop
-        if count_work:
-            work["pairs"] += int(live.sum())
-            work["exps"] += int((live & (power <= 0.0)).sum())
-            work["blended"] += int(blend.sum())
+        return _Step(rows, dx, dy, power, ex, e, alpha, live, test_t, stop,
+                     blend, w)
 
-    img = color.reshape(nty, ntx, 3, tile_size, tile_size).permute(
-        2, 0, 3, 1, 4).reshape(3, nty * tile_size, ntx * tile_size)
-    t_img = trans.reshape(nty, ntx, tile_size, tile_size).permute(
-        0, 2, 1, 3).reshape(nty * tile_size, ntx * tile_size)
-    out = (img[:, :height, :width].contiguous(),
-           t_img[:height, :width].contiguous())
-    return (out, work) if count_work else out
+    def untile(self, x):
+        """[T, c, P] -> [c, height, width]."""
+        c, ts = x.shape[1], self.ts
+        img = x.reshape(self.nty, self.ntx, c, ts, ts).permute(
+            2, 0, 3, 1, 4).reshape(c, self.nty * ts, self.ntx * ts)
+        return img[:, :self.height, :self.width].contiguous()
+
+    def retile(self, img):
+        """[c, height, width] -> [T, c, P], zero past the image edges."""
+        c, ts = img.shape[0], self.ts
+        img = torch.nn.functional.pad(
+            img, (0, self.ntx * ts - self.width, 0, self.nty * ts - self.height))
+        return img.reshape(c, self.nty, ts, self.ntx, ts).permute(
+            1, 3, 0, 2, 4).reshape(self.num_tiles, c, self.p)
+
+
+def _count(work, s: _Step):
+    work["pairs"] += int(s.live.sum())
+    work["exps"] += int((s.live & (s.power <= 0.0)).sum())
+    work["blended"] += int(s.blend.sum())

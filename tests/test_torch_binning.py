@@ -16,6 +16,7 @@ from gaussianavatars_tpu.ops.projection import project_gaussians as jproject
 from gaussianavatars_torch.ops.binning_dense import bin_gaussians_dense as tbin
 
 from .utils import make_camera, make_scene
+from .test_torch_blend import one_torch_thread  # noqa: F401
 
 
 def _projected(seed, n, width, height, spread, scale_mean):

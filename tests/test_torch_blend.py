@@ -27,6 +27,18 @@ from .utils import make_camera, make_scene
 ATOL = 1e-5
 WIDTH, HEIGHT = 48, 40
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's plain CPU versions run thousands of ops on small tensors:
+    with several test workers on one host, torch's intra-op threads only
+    contend (5-7x slower), so each port test module runs on one thread.
+    The other port test files import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # (tile_size, seed, spread, scale_mean, opacity, tile-row window)
 CASES = {
     "tile16": (16, 0, 1.0, -2.3, None, None),

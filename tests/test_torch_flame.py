@@ -18,6 +18,7 @@ from gaussianavatars_torch.models.flame import FlameHead as TFlameHead
 from gaussianavatars_torch.ops import lbs as tlbs
 
 from .flame_fixtures import make_flame_assets
+from .test_torch_blend import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

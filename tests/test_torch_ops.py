@@ -20,6 +20,7 @@ from gaussianavatars_torch.ops import sh as tsh
 from gaussianavatars_torch.ops import transforms as ttf
 
 from .utils import make_camera, make_scene
+from .test_torch_blend import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-6, 1e-5
 

@@ -12,6 +12,7 @@ from gaussianavatars_torch.ops.rasterize_tiles import rasterize
 
 from .golden.make_goldens import big_scene
 from .utils import make_camera, make_scene
+from .test_torch_blend import one_torch_thread  # noqa: F401
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 

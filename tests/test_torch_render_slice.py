@@ -31,6 +31,7 @@ from gaussianavatars_torch.train.loop import camera_arrays, make_render_fn
 
 from .flame_fixtures import make_flame_assets
 from .utils import make_camera
+from .test_torch_blend import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H = 64, 48
