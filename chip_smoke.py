@@ -10,14 +10,18 @@ Phases (any failure exits non-zero before the result line):
   2. build: every kernel of the port from `gaussianavatars_torch/csrc` with
      nvcc (one process per source, started together);
   3. kernel K1 (forward tile blend) against its plain PyTorch version on
-     the card: small scenes, an early-out scene, a tile-row slab (max|d| <=
+     the card: small scenes, an early-out scene, a tile-row slab, scenes
+     that stress the kernels' per-warp cull (a Gaussian larger than the
+     image, centres exactly on patch and tile borders, needle-thin rotated
+     Gaussians, opacities at 1/255, each in every tile's range so that only
+     the kernels cull, and a tile-unaligned 801x551 render) (max|d| <=
      1e-5) and the full bench stream of the bound avatar (max|d| <= 1e-3,
      the JAX package's own kernel-vs-jnp drift from deep float32 blending);
      then kernel K2 (its backward) against the plain backward on the same
      streams with random cotangents, per gradient column max|d| /
      max|plain| <= 1e-4 (small; the JAX package's backward gate between
      its backends) and <= 5e-4 (bench stream; its on-device gate at the
-     100k bench);
+     100k bench), and K2 twice on every stream for the same bits;
   4. both checked-in golden renders through the port's rasterizer on the
      card, at the golden tests' tolerances;
   5. the serving path: the FLAME-bound bench avatar (101,440 Gaussians,
@@ -31,17 +35,21 @@ Phases (any failure exits non-zero before the result line):
      timed steps, finiteness and a falling loss checked, then ms per step
      and its per-phase breakdown (CUDA events);
   7. each kernel's time at the bench shapes beside its plain version's and
-     its roofline bound, as one JSON `kernels` line.
+     its roofline bound, the bench stream's range lengths and the pixel
+     evaluations the kernels make (a counting build), as JSON lines; the
+     `kernels` line is the last but one.
 The last line is {"ok": true, "device": {...}}. Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -51,6 +59,7 @@ TOL_SMALL = 1e-5
 TOL_BENCH = 1e-3
 TOL_BWD_SMALL = 1e-4
 TOL_BWD_BENCH = 5e-4
+COUNTING = ("GA_COUNT=1",)    # the kernels' counting build (phase 7)
 MAIN_PATH_RENDERS = 40        # 10 cycles over the 4 timesteps
 TRAIN_STEPS = 20              # 5 cycles over the 4 timesteps
 
@@ -138,6 +147,54 @@ def big_golden_scene(n=1024, seed=3, sh_degree=2):
         shs=sh)
 
 
+def stress_streams(dev, tile_size, width=100, height=70, n=96):
+    """Streams that stress the kernels' per-warp cull, made directly (no
+    projection, no binning): every tile's range holds all `n` instances in
+    one order, so nothing is culled before the kernels. Yields
+    (name, inst, ranges, blend arguments)."""
+    ntx, nty = -(-width // tile_size), -(-height // tile_size)
+
+    def build(mean, lam1, lam2, theta, opacity, seed):
+        rng = np.random.default_rng(seed)
+        c, s = np.cos(theta), np.sin(theta)
+        sxx = lam1 * c * c + lam2 * s * s
+        sxy = (lam1 - lam2) * c * s
+        syy = lam1 * s * s + lam2 * c * c
+        det = sxx * syy - sxy * sxy
+        rows = np.concatenate(
+            [mean, np.stack([syy / det, -sxy / det, sxx / det], 1),
+             rng.uniform(0, 1, (n, 3)), opacity[:, None]], 1)
+        inst = torch.as_tensor(np.tile(rows, (ntx * nty, 1)).astype(
+            np.float32), device=dev)
+        starts = np.arange(ntx * nty) * n
+        ranges = torch.as_tensor(np.stack([starts, starts + n], 1).astype(
+            np.int32), device=dev)
+        return inst, ranges, (0, width, height, tile_size)
+
+    rng = np.random.default_rng(11)
+    anywhere = np.stack([rng.uniform(-10, width + 10, n),
+                         rng.uniform(-10, height + 10, n)], 1)
+    small = np.exp(rng.uniform(np.log(0.3), np.log(30.0), (2, n)))
+    angles = rng.uniform(0, np.pi, n)
+    opaque = rng.uniform(0.05, 0.9, n)
+
+    lam = small.copy()
+    lam[:, 3] = (4e5, 3e5)              # one Gaussian larger than the image
+    yield ("huge", *build(anywhere, lam[0], lam[1], angles, opaque, 1))
+    on_borders = np.stack([4.0 * rng.integers(0, width // 4 + 1, n),
+                           2.0 * rng.integers(0, height // 2 + 1, n)], 1)
+    on_borders -= 0.5 * rng.integers(0, 2, (n, 1))
+    yield ("borders", *build(on_borders, small[0], small[1], angles, opaque,
+                             2))
+    yield ("needles", *build(
+        anywhere, np.exp(rng.uniform(np.log(1e3), np.log(1e5), n)),
+        np.full(n, 0.3), angles, rng.uniform(0.02, 0.3, n), 3))
+    faint = (1.0 / 255.0) * rng.choice(
+        [1.0 - 1e-6, 1.0, 1.0 + 1e-6, 1.0 + 1e-3, 1.05, 1.5, 4.0], n)
+    yield ("faint", *build(anywhere, small[0] * 4, small[1] * 4, angles,
+                           faint, 4))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -146,18 +203,14 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from gaussianavatars_torch import kernels
     from gaussianavatars_torch.benchmark import (
-        HEIGHT, WIDTH, bench_camera, make_bound_bench_model, make_camera,
+        HEIGHT, WIDTH, bench_camera, blend_inputs, bound_bench_scene,
+        make_bound_bench_model, make_camera,
     )
     from gaussianavatars_torch.config import OptimizationConfig, PipelineConfig
     from gaussianavatars_torch.device import resolve_device
-    from gaussianavatars_torch.models.gaussians import world_space_gaussians
     from gaussianavatars_torch.ops import tile_blend
-    from gaussianavatars_torch.ops.binning_dense import bin_gaussians_dense
-    from gaussianavatars_torch.ops.instance_pack import (
-        gather_instances, pack_projected,
-    )
-    from gaussianavatars_torch.ops.projection import project_gaussians
     from gaussianavatars_torch.ops.rasterize_tiles import rasterize
+    from gaussianavatars_torch.profile_render import range_stats
     from gaussianavatars_torch.train.loop import (
         camera_arrays, initial_state, lr_pytree, make_render_fn,
         make_train_step,
@@ -174,7 +227,10 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    logs = kernels.build()
+    with ThreadPoolExecutor(2) as pool:   # the counting build beside it
+        counting = pool.submit(kernels.build, None, COUNTING)
+        logs = kernels.build()
+        counting.result()
     build_s = time.perf_counter() - t0
     print(f"[build] {sorted(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
@@ -185,19 +241,7 @@ def main() -> int:
     # ---- 3. K1 against its plain version ------------------------------------
     def stream(scene, camera, tile_size, row0=0, rows=None, sh_degree=2):
         t = {k: torch.as_tensor(v, device=dev) for k, v in scene.items()}
-        proj = project_gaussians(t["means3d"], t["scales"], t["quats"],
-                                 t["opacities"], t["shs"], sh_degree, camera)
-        b = bin_gaussians_dense(
-            proj.means2d, proj.depths, proj.radii, proj.valid, proj.conics,
-            proj.tau, proj.ext_x, proj.ext_y, camera.width, camera.height,
-            tile_size, row0, rows)
-        inst = gather_instances(pack_projected(
-            proj.means2d, proj.conics, proj.colors, proj.opacities),
-            b.gaussian_ids)
-        ranges = torch.stack([b.tile_starts, b.tile_ends], -1)
-        height = camera.height if rows is None else rows * tile_size
-        return inst, ranges, (row0 * tile_size, camera.width, height,
-                              tile_size)
+        return blend_inputs(t, camera, tile_size, sh_degree, row0, rows)
 
     def compare(name, inst, ranges, args, tol):
         out = tile_blend.blend_image(inst, ranges, *args)
@@ -242,6 +286,10 @@ def main() -> int:
               f"column max|d|/max|plain| {rel:.3e} (limit {tol:.0e}), "
               f"nonzero slots {int((ref != 0).any(1).sum())}")
         check(rel <= tol, f"K2 {name}: relative error {rel} above {tol}")
+        again = tile_blend.blend_image_bwd_cuda(inst, ranges, *args, color,
+                                                trans, g_c, g_t)
+        check(torch.equal(out, again),
+              f"K2 {name}: two runs gave different bits")
         return err, rel, start.elapsed_time(end)
 
     small_cam = make_camera(width=48, height=40, device=dev)
@@ -260,15 +308,27 @@ def main() -> int:
         bwd_errs.append(compare_bwd(name, inst, ranges, args, TOL_BWD_SMALL,
                                     seed))
 
+    seed = 20
+    for ts in (16, 32):
+        for name, inst, ranges, args in stress_streams(dev, ts):
+            seed += 1
+            errs.append(compare(f"cull stress, {name}, tile{ts}", inst,
+                                ranges, args, TOL_SMALL))
+            bwd_errs.append(compare_bwd(f"cull stress, {name}, tile{ts}",
+                                        inst, ranges, args, TOL_BWD_SMALL,
+                                        seed))
+        inst, ranges, args = stream(
+            small_scene(512, 6, 1.2, -2.0),
+            make_camera(width=801, height=551, device=dev), ts)
+        errs.append(compare(f"unaligned 801x551 tile{ts}", inst, ranges, args,
+                            TOL_SMALL))
+        bwd_errs.append(compare_bwd(f"unaligned 801x551 tile{ts}", inst,
+                                    ranges, args, TOL_BWD_SMALL, seed + 10))
+
     model = make_bound_bench_model(device=dev)
     cam = bench_camera(WIDTH, HEIGHT, device=dev)
-    with torch.no_grad():
-        frames = model.face_frames_at(model.flame_param, 0)
-        m3, sc, q, op, shs = world_space_gaussians(model.params,
-                                                   model.binding, frames)
-        bench_scene = dict(means3d=m3, scales=sc, quats=q, opacities=op,
-                           shs=shs)
-        b_inst, b_ranges, b_args = stream(bench_scene, cam, 32, sh_degree=3)
+    b_inst, b_ranges, b_args = blend_inputs(bound_bench_scene(model, 0), cam,
+                                            32)
     errs.append(compare("bench stream 802x550", b_inst, b_ranges, b_args,
                         TOL_BENCH))
     bwd_errs.append(compare_bwd("bench stream 802x550", b_inst, b_ranges,
@@ -491,6 +551,32 @@ def main() -> int:
           f"{k2_bound_ms:.4f} ms (bytes {k2_t_bytes:.4f}, ops "
           f"{k2_t_ops:.4f})")
 
+    ranges_line = dict(what="ranges", **range_stats(b_ranges))
+    print(json.dumps(ranges_line))
+    # what the kernels walk, from the counting build of the same sources
+    # (not on any timed path), beside what the pixels need (`work`)
+    walked = {}
+    for name, run in (
+            ("blend_fwd", lambda lib: tile_blend.blend_image_cuda(
+                b_inst, b_ranges, *b_args, lib=lib)),
+            ("blend_bwd", lambda lib: tile_blend.blend_image_bwd_cuda(
+                b_inst, b_ranges, *b_args, b_color, b_trans, b_gc, b_gt,
+                lib=lib))):
+        lib = kernels.load(name, COUNTING)
+        read = getattr(lib, name + "_counts")
+        out = (ctypes.c_ulonglong * 3)()
+        check(read(out) == 0, f"{name}_counts failed")        # zeroes them
+        run(lib)
+        check(read(out) == 0, f"{name}_counts failed")
+        walked[name] = {"cull_tests": out[0], "warp_slots_walked": out[1],
+                        "pixel_evaluations": out[2]}
+        check(work["blended"] <= out[2] <= work["pairs"],
+              f"{name} made {out[2]} pixel evaluations; the pixels need "
+              f"{work['blended']} to {work['pairs']}")
+    print(json.dumps(dict(
+        what="pairs", **walked, plain=work,
+        whole_tile_pairs=int(b_inst.shape[0]) * b_args[3] ** 2)))
+
     # no single PyTorch call computes either function (a depth-sorted
     # front-to-back blend with an early stop, or its VJP), so no library_ms
     kernel_line = {"kernels": [{
@@ -500,6 +586,7 @@ def main() -> int:
         "replaces": "gaussianavatars_tpu/ops/blend_pallas.py:437",
         "launches": launches["blend_fwd"],
         "max_abs_err": max(errs),
+        "pixel_evaluations": walked["blend_fwd"]["pixel_evaluations"],
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -513,6 +600,7 @@ def main() -> int:
         "launches": train_launches["blend_bwd"],
         "max_abs_err": max(e[0] for e in bwd_errs),
         "max_column_rel_err": max(e[1] for e in bwd_errs),
+        "pixel_evaluations": walked["blend_bwd"]["pixel_evaluations"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound_ms,

@@ -36,8 +36,17 @@ from gaussianavatars_torch.models.gaussians import (
     GaussianModel,
     GaussianParams,
     inverse_sigmoid,
+    world_space_gaussians,
 )
-from gaussianavatars_torch.ops.projection import CameraParams
+from gaussianavatars_torch.ops.binning_dense import bin_gaussians_dense
+from gaussianavatars_torch.ops.instance_pack import (
+    gather_instances,
+    pack_projected,
+)
+from gaussianavatars_torch.ops.projection import (
+    CameraParams,
+    project_gaussians,
+)
 from gaussianavatars_torch.ops.transforms import (
     camera_center_from_world_view,
     full_projection,
@@ -266,3 +275,36 @@ def make_bound_bench_model(sh_degree=SH_DEGREE, n_per_face=10, seed=0,
     model.spatial_lr_scale = 1.0
     model.reset_stats()
     return model
+
+
+def blend_inputs(scene: dict, camera: CameraParams, tile_size: int,
+                 sh_degree: int = SH_DEGREE, tile_row_start: int = 0,
+                 tile_rows=None):
+    """The tile blend's inputs for a scene dict (`means3d`, `scales`,
+    `quats`, `opacities`, `shs`): the (K, 9) stream, the (T, 2) ranges and
+    the blend's remaining arguments (py_offset, width, height, tile_size),
+    as `ops/rasterize_tiles.py::rasterize` hands them to `blend_image`."""
+    proj = project_gaussians(scene["means3d"], scene["scales"],
+                             scene["quats"], scene["opacities"], scene["shs"],
+                             sh_degree, camera)
+    b = bin_gaussians_dense(
+        proj.means2d, proj.depths, proj.radii, proj.valid, proj.conics,
+        proj.tau, proj.ext_x, proj.ext_y, camera.width, camera.height,
+        tile_size, tile_row_start, tile_rows)
+    inst = gather_instances(pack_projected(
+        proj.means2d, proj.conics, proj.colors, proj.opacities),
+        b.gaussian_ids)
+    ranges = torch.stack([b.tile_starts, b.tile_ends], -1)
+    height = camera.height if tile_rows is None else tile_rows * tile_size
+    return inst, ranges, (tile_row_start * tile_size, camera.width, height,
+                          tile_size)
+
+
+def bound_bench_scene(model: FlameGaussianModel, timestep: int = 0) -> dict:
+    """The bound avatar's world-space Gaussians at a timestep, as a scene
+    dict for `blend_inputs` (no gradients)."""
+    with torch.no_grad():
+        frames = model.face_frames_at(model.flame_param, timestep)
+        m3, sc, q, op, shs = world_space_gaussians(model.params,
+                                                   model.binding, frames)
+    return dict(means3d=m3, scales=sc, quats=q, opacities=op, shs=shs)

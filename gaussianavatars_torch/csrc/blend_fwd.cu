@@ -15,139 +15,121 @@
 //   take T below 1e-4; else color += c * alpha * T, T *= 1 - alpha.
 // Outputs: color [3, H, W] without background and the final T [H, W].
 //
-// What bounds it on an H100: arithmetic, not bytes. The stream is read
-// once per tile (36 B per instance) and each pixel written once, a few
-// tens of MB at the bench shape, while the work is one quadratic (~11 FP32
-// operations) for every evaluated pixel-instance pair, one expf (MUFU.EX2
-// on the SFU, which issues at 1/8 the FP32 rate) for every pair with
-// power <= 0, and ~10 more operations for every accepted pair: roughly
-// K x P pairs less the early-out, K ~ 0.7M instances and P = 1024 pixels.
+// What bounds it on an H100: operations, not bytes, and among the
+// operations not their number but their order. The stream is read once per
+// tile (36 B per instance) and each pixel written once, a few tens of MB.
+// The arithmetic the pixels need (a quadratic per pixel-instance pair
+// before the pixel stops, an expf and ~10 more operations per accepted
+// pair) is tens of microseconds of the card's float32 rate. What takes
+// the time is the serial walk of the longest tile: a pixel's T depends on
+// every instance before it, a bound avatar's Gaussians are a few pixels
+// wide so a 32x32 tile accepts each in a small corner only, and the head
+// fills a few hundred middle tiles while the border tiles are empty.
 //
-// Design (the reference CUDA rasterizer's, SURVEY.md 2.4 N1):
-//   * one 256-thread CTA per tile; at tile 32 each thread owns 4 adjacent
-//     pixels of one row, so a warp covers a 32x4 patch. Each instance read
-//     from shared memory then feeds 4 pixel evaluations (a 1024-thread CTA
-//     would reload it per pixel and cap residency at two CTAs per SM);
-//   * the threads load batches of 256 instances of the tile's range into
-//     shared memory as SoA, then every thread walks the batch in order;
-//   * `__syncthreads_count` on the per-thread done flags ends the tile
-//     once every pixel has saturated (T would drop below 1e-4);
+// What the design does about it (blend_common.cuh has the shared parts):
+//   * one CTA per tile and one warp per 8x4 patch of it, a pixel a lane:
+//     1024 threads at tile 32, so the longest tile's walk is spread over
+//     every warp slot of its SM (256 threads with 4 pixels each left the
+//     SM that holds it waiting on two warps a scheduler);
+//   * exact culling per warp: lane j tests slot j of every 32 staged slots
+//     against the warp's patch with the binning's ellipse-box test, the
+//     warp ballots and walks only the survivors, in stream order. The test
+//     is widened by a stated margin so that it never drops a pair the
+//     decision path accepts: the image is bit for bit the one without it;
+//   * the range is staged through a two-buffer ring of 256-slot batches by
+//     TMA bulk copies that complete on an mbarrier: the next batch loads
+//     while this one is walked, and the CTA meets at one barrier per batch;
+//   * that barrier counts the done flags (`__syncthreads_count`) and ends
+//     the tile once every pixel has saturated; a warp whose pixels have all
+//     stopped leaves the batch at once;
 //   * pixels past the ragged right and bottom image edges start done and
-//     are never written (802 is not a multiple of 32).
-// The quadratic and the accept tests use explicitly rounded operations
-// (no FMA contraction), so every accept/reject decision at power <= 0 and
-// e >= 1/255 rounds exactly as in the plain version; only the color sums
-// use FMA. Making it fast (warp-level culling, tile 16, deeper batching)
-// is later work.
+//     are never written (802 is not a multiple of 32);
+//   * the quadratic and the accept tests use explicitly rounded operations
+//     (no FMA contraction), so every decision rounds exactly as in the
+//     plain version; only the color sums use FMA.
+// Tensor cores have no place here: the only product is the 6-term
+// quadratic, whose accept/reject decisions at the 1/255 and 1e-4 thresholds
+// need float32 (TF32 keeps 10 mantissa bits), and after the cull the
+// float32 pipe has little left to do.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCols = 9;  // mx my | cxx cxy cyy | r g b | opacity
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
+using namespace blend;
+
+constexpr int kBatch = 256;  // slots per staged batch
 
 template <int TILE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Map<TILE>::kThreads)
 blend_fwd_kernel(const float* __restrict__ inst, const int* __restrict__ ranges,
                  int ntx, int width, int height, int py_offset,
                  float* __restrict__ color, float* __restrict__ trans) {
-  constexpr int kPix = TILE * TILE / kThreads;  // pixels per thread
-  __shared__ float s_inst[kCols][kThreads];
+  constexpr int kThreads = Map<TILE>::kThreads;
+  __shared__ __align__(16) float s_ring[kStages * kBatch * kCols];
+  __shared__ __align__(8) unsigned long long s_bar[kStages];
 
   const int tile = blockIdx.x;
-  const int x0 = (tile % ntx) * TILE;
-  const int y0 = (tile / ntx) * TILE;
-  const int start = ranges[2 * tile];
-  const int end = ranges[2 * tile + 1];
+  const Map<TILE> map(tile, ntx, py_offset);
+  const float px = static_cast<float>(map.x);
+  const float py = static_cast<float>(map.y + py_offset);
+  const bool inside = map.x < width && map.y < height;
+  Counter counter;
 
-  int xs[kPix], ys[kPix];
-  float px[kPix], py[kPix], t[kPix], cr[kPix], cg[kPix], cb[kPix];
-  bool done[kPix];
-#pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    const int p = threadIdx.x * kPix + i;
-    xs[i] = x0 + p % TILE;
-    ys[i] = y0 + p / TILE;
-    px[i] = static_cast<float>(xs[i]);
-    py[i] = static_cast<float>(ys[i] + py_offset);
-    t[i] = 1.f;
-    cr[i] = cg[i] = cb[i] = 0.f;
-    done[i] = !(xs[i] < width && ys[i] < height);
+  float t = 1.f, cr = 0.f, cg = 0.f, cb = 0.f;
+  bool done = !inside;
+
+  Stager<kBatch> stage(s_ring, s_bar, inst, ranges[2 * tile],
+                       ranges[2 * tile + 1]);
+  const int batches = stage.batches();
+  if (batches > 0) stage.begin();
+  for (int b = 0; b < batches; ++b) {
+    stage.wait(b);
+    // a barrier too: every warp has left batch b - 1, so its buffer is free
+    if (__syncthreads_count(done) == kThreads) break;
+    stage.prefetch(b);
+    walk_survivors<TILE>(
+        stage.rows(b), stage.head(b), stage.count(b), map, px, py, done,
+        counter, [&](int, const Instance& s, const Footprint& f) {
+          if (done) return;
+          counter.add(2);
+          float test_t;
+          const Verdict verdict = decide(f, t, test_t);
+          if (verdict == kStop) done = true;
+          if (verdict != kBlend) return;
+          const float w = __fmul_rn(f.alpha, t);
+          cr = fmaf(s.r, w, cr);
+          cg = fmaf(s.g, w, cg);
+          cb = fmaf(s.b, w, cb);
+          t = test_t;
+        });
   }
 
-  for (int base = start; base < end; base += kThreads) {
-    bool thread_done = true;
-#pragma unroll
-    for (int i = 0; i < kPix; ++i) thread_done = thread_done && done[i];
-    // a barrier too: the previous batch is consumed before it is replaced
-    if (__syncthreads_count(thread_done) == kThreads) break;
-
-    const int j = base + threadIdx.x;
-    if (j < end) {
-      const float* row = inst + static_cast<size_t>(j) * kCols;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) s_inst[c][threadIdx.x] = row[c];
-    }
-    __syncthreads();
-
-    const int n = min(kThreads, end - base);
-    for (int k = 0; k < n; ++k) {
-      const float mx = s_inst[0][k], my = s_inst[1][k];
-      const float cxx = s_inst[2][k], cxy = s_inst[3][k], cyy = s_inst[4][k];
-      const float r = s_inst[5][k], g = s_inst[6][k], b = s_inst[7][k];
-      const float op = s_inst[8][k];
-#pragma unroll
-      for (int i = 0; i < kPix; ++i) {
-        if (done[i]) continue;
-        const float dx = __fsub_rn(mx, px[i]);
-        const float dy = __fsub_rn(my, py[i]);
-        const float qxx = __fmul_rn(__fmul_rn(cxx, dx), dx);
-        const float qyy = __fmul_rn(__fmul_rn(cyy, dy), dy);
-        const float qxy = __fmul_rn(__fmul_rn(cxy, dx), dy);
-        const float power =
-            __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(qxx, qyy)), qxy);
-        if (power > 0.f) continue;
-        const float e = __fmul_rn(op, expf(power));
-        if (e < kAlphaMin) continue;
-        const float alpha = fminf(kAlphaMax, e);
-        const float test_t = __fmul_rn(t[i], __fsub_rn(1.f, alpha));
-        if (test_t < kTEps) {
-          done[i] = true;
-          continue;
-        }
-        const float w = __fmul_rn(alpha, t[i]);
-        cr[i] = fmaf(r, w, cr[i]);
-        cg[i] = fmaf(g, w, cg[i]);
-        cb[i] = fmaf(b, w, cb[i]);
-        t[i] = test_t;
-      }
-    }
+  if (inside) {
+    const size_t plane = static_cast<size_t>(width) * height;
+    const size_t idx = static_cast<size_t>(map.y) * width + map.x;
+    color[idx] = cr;
+    color[plane + idx] = cg;
+    color[2 * plane + idx] = cb;
+    trans[idx] = t;
   }
+}
 
-  const size_t plane = static_cast<size_t>(width) * height;
-#pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    if (xs[i] < width && ys[i] < height) {
-      const size_t idx = static_cast<size_t>(ys[i]) * width + xs[i];
-      color[idx] = cr[i];
-      color[plane + idx] = cg[i];
-      color[2 * plane + idx] = cb[i];
-      trans[idx] = t[i];
-    }
-  }
+template <int TILE>
+void launch(const float* inst, const int* ranges, int num_tiles, int ntx,
+            int width, int height, int py_offset, float* color, float* trans,
+            cudaStream_t s) {
+  blend_fwd_kernel<TILE><<<num_tiles, Map<TILE>::kThreads, 0, s>>>(
+      inst, ranges, ntx, width, height, py_offset, color, trans);
 }
 
 }  // namespace
 
-// inst: (K, 9) float32 row-major stream; ranges: (num_tiles, 2) int32
-// [start, end) per tile, tiles row-major over an ntx-wide grid; color:
-// (3, height, width) float32; trans: (height, width) float32; py_offset:
-// global pixel row of the slab's first row. Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// inst: (K, 9) float32 row-major stream, 16-byte aligned; ranges:
+// (num_tiles, 2) int32 [start, end) per tile, tiles row-major over an
+// ntx-wide grid; color: (3, height, width) float32; trans: (height, width)
+// float32; py_offset: global pixel row of the slab's first row. Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int blend_fwd(const float* inst, const int* ranges, int num_tiles,
                          int ntx, int width, int height, int tile_size,
                          int py_offset, float* color, float* trans,
@@ -155,14 +137,49 @@ extern "C" int blend_fwd(const float* inst, const int* ranges, int num_tiles,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_tiles > 0) {
     if (tile_size == 16) {
-      blend_fwd_kernel<16><<<num_tiles, kThreads, 0, s>>>(
-          inst, ranges, ntx, width, height, py_offset, color, trans);
+      launch<16>(inst, ranges, num_tiles, ntx, width, height, py_offset,
+                 color, trans, s);
     } else if (tile_size == 32) {
-      blend_fwd_kernel<32><<<num_tiles, kThreads, 0, s>>>(
-          inst, ranges, ntx, width, height, py_offset, color, trans);
+      launch<32>(inst, ranges, num_tiles, ntx, width, height, py_offset,
+                 color, trans, s);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// out[4]: registers per thread, shared memory per CTA in bytes, CTAs
+// resident per SM and local memory per thread in bytes of the kernel for
+// `tile_size`, as the runtime reports them.
+extern "C" int blend_fwd_residency(int tile_size, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  if (tile_size == 16) {
+    err = cudaFuncGetAttributes(&attr, blend_fwd_kernel<16>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[2], blend_fwd_kernel<16>, Map<16>::kThreads, 0);
+  } else {
+    err = cudaFuncGetAttributes(&attr, blend_fwd_kernel<32>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[2], blend_fwd_kernel<32>, Map<32>::kThreads, 0);
+  }
+  out[0] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(err);
+}
+
+#if GA_COUNT
+// Copies the counters (cull tests, surviving warp-slots, pixel
+// evaluations) to `out` and sets them to 0; waits for the device.
+extern "C" int blend_fwd_counts(unsigned long long* out) {
+  const unsigned long long zero[3] = {0, 0, 0};
+  cudaError_t err = cudaMemcpyFromSymbol(out, blend::g_counts, sizeof(zero));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(blend::g_counts, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif

@@ -27,6 +27,13 @@ that are rejected or come after the pixel stops; d_opacity = d_alpha
 exp(power), and mean2d and conic take d_power = d_alpha alpha times the
 partials of the quadratic. The gradient is one (K, 9) row per stream slot,
 in the stream's column layout.
+
+Below the tile, both kernels cull per warp: each warp owns a patch of the
+tile (`PATCH_SHAPE`) and skips the instances that the exact ellipse-box
+test of the binning, widened by `CULL_ABS` and `CULL_REL`, shows no pixel
+of the patch can accept. `patch_cull_plain` is that test in PyTorch, and
+`cull=True` applies it in the plain versions: it changes no bit of their
+results.
 """
 
 from __future__ import annotations
@@ -37,12 +44,19 @@ from typing import NamedTuple
 import torch
 
 from gaussianavatars_torch import kernels
-from gaussianavatars_torch.ops.binning_dense import tile_grid
+from gaussianavatars_torch.ops.binning_dense import _box_qmin, tile_grid
 from gaussianavatars_torch.ops.instance_pack import PACK_COLS
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
+# The kernels' cull (csrc/blend_common.cuh): a warp skips an instance when
+# the least q = d^T conic d over its patch's box exceeds
+# tau + CULL_ABS + CULL_REL * mag, tau = 2 ln(255 opacity) and mag the
+# largest value the quadratic's terms take in the box.
+CULL_ABS = 1e-4
+CULL_REL = 1e-5
+PATCH_SHAPE = (8, 4)    # a warp's patch of the tile: width, height
 
 
 def blend_image(inst, ranges, py_offset: int, width: int, height: int,
@@ -114,12 +128,14 @@ def _check_stream(inst, ranges, width, height, tile_size):
                          f"got {ranges.dtype} {tuple(ranges.shape)}")
     if tile_size not in (16, 32):
         raise ValueError(f"tile_size must be 16 or 32, got {tile_size}")
+    if inst.data_ptr() % 16:
+        raise ValueError("inst must be 16-byte aligned (the kernels stage "
+                         "it by bulk copies)")
     return ntx, nty
 
 
-def _blend_fwd_lib():
-    lib = kernels.load("blend_fwd")
-    fn = lib.blend_fwd
+def _blend_fwd_fn(lib):
+    fn = (lib or kernels.load("blend_fwd")).blend_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -130,13 +146,15 @@ def _blend_fwd_lib():
 
 
 def blend_image_cuda(inst, ranges, py_offset: int, width: int, height: int,
-                     tile_size: int):
+                     tile_size: int, *, lib=None):
     """`blend_image` on the GPU through kernel K1 (one launch).
 
+    `lib` is another build of the kernel library (the counting build,
+    another source directory's); the render path passes none.
     `blend_image_cuda.launches` counts the launches.
     """
     ntx, nty = _check_stream(inst, ranges, width, height, tile_size)
-    fn = _blend_fwd_lib()
+    fn = _blend_fwd_fn(lib)
     color = torch.empty((3, height, width), dtype=torch.float32,
                         device=inst.device)
     trans = torch.empty((height, width), dtype=torch.float32,
@@ -159,9 +177,8 @@ blend_image_cuda.launches = 0
 # Kernel K2
 # ----------------------------------------------------------------------------
 
-def _blend_bwd_lib():
-    lib = kernels.load("blend_bwd")
-    fn = lib.blend_bwd
+def _blend_bwd_fn(lib):
+    fn = (lib or kernels.load("blend_bwd")).blend_bwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -174,10 +191,11 @@ def _blend_bwd_lib():
 
 def blend_image_bwd_cuda(inst, ranges, py_offset: int, width: int,
                          height: int, tile_size: int, color, trans, g_color,
-                         g_trans):
+                         g_trans, *, lib=None):
     """`blend_image`'s VJP on the GPU through kernel K2 (one launch).
 
-    Returns the (K, 9) per-slot gradient; slots no tile walks stay 0.
+    Returns the (K, 9) per-slot gradient; slots no pixel blended stay 0.
+    `lib` as in `blend_image_cuda`.
     `blend_image_bwd_cuda.launches` counts the launches.
     """
     ntx, nty = _check_stream(inst, ranges, width, height, tile_size)
@@ -190,7 +208,7 @@ def blend_image_bwd_cuda(inst, ranges, py_offset: int, width: int,
             raise ValueError(f"{name} must be contiguous float32 {shape} on "
                              f"{inst.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    fn = _blend_bwd_lib()
+    fn = _blend_bwd_fn(lib)
     grad = torch.zeros_like(inst)
     with torch.cuda.device(inst.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -212,7 +230,8 @@ blend_image_bwd_cuda.launches = 0
 # ----------------------------------------------------------------------------
 
 def blend_image_plain(inst, ranges, py_offset: int, width: int, height: int,
-                      tile_size: int, count_work: bool = False):
+                      tile_size: int, count_work: bool = False,
+                      cull: bool = False):
     """`blend_image` in plain PyTorch on any device, batched over tiles.
 
     Walks instance position j = 0, 1, ... of every tile's range at once
@@ -221,7 +240,9 @@ def blend_image_plain(inst, ranges, py_offset: int, width: int, height: int,
     the quadratic). With `count_work` it also returns the work these
     inputs need, for the kernel's roofline bound: pixel-instance pairs
     evaluated before each pixel stops (`pairs`), those with power <= 0 that
-    need an exp (`exps`) and those blended (`blended`).
+    need an exp (`exps`) and those blended (`blended`). With `cull` the
+    pixels of a patch skip the instances `patch_cull_plain` drops for it,
+    as the kernels' warps do; the result is the same bit for bit.
     """
     g = _TileGrid(inst, ranges, py_offset, width, height, tile_size)
     trans = torch.ones((g.num_tiles, g.p), dtype=torch.float32,
@@ -233,7 +254,7 @@ def blend_image_plain(inst, ranges, py_offset: int, width: int, height: int,
     for j in range(g.max_count):
         if j % 64 == 0 and bool(done.all()):
             break
-        s = g.step(j, trans, done)
+        s = g.step(j, trans, done, cull)
         color = color + s.rows[:, 5:8, None] * s.w[:, None, :]
         trans = torch.where(s.blend, s.test_t, trans)
         done = done | s.stop
@@ -246,7 +267,8 @@ def blend_image_plain(inst, ranges, py_offset: int, width: int, height: int,
 
 def blend_image_bwd_plain(inst, ranges, py_offset: int, width: int,
                           height: int, tile_size: int, color, trans, g_color,
-                          g_trans, count_work: bool = False):
+                          g_trans, count_work: bool = False,
+                          cull: bool = False):
     """`blend_image`'s VJP in plain PyTorch on any device: the (K, 9)
     per-slot gradient (port of the blueprint's `_blend_image_bwd`).
 
@@ -254,7 +276,7 @@ def blend_image_bwd_plain(inst, ranges, py_offset: int, width: int,
     back, re-deciding every accept, reject and stop as the forward did (so
     the same rounding as kernels K1 and K2), carrying T and the inclusive
     prefix S_incl. `count_work` also returns the work these inputs need,
-    as in `blend_image_plain`.
+    and `cull` applies the kernels' patch cull, as in `blend_image_plain`.
     """
     g = _TileGrid(inst, ranges, py_offset, width, height, tile_size)
     out_c, out_t = g.retile(color), g.retile(trans[None])[:, 0]
@@ -268,7 +290,7 @@ def blend_image_bwd_plain(inst, ranges, py_offset: int, width: int,
     for j in range(g.max_count):
         if j % 64 == 0 and bool(done.all()):
             break
-        s = g.step(j, trans_t, done)
+        s = g.step(j, trans_t, done, cull)
         r = s.rows
         cg = (r[:, 5:8, None] * g_c).sum(1)                       # [T, P]
         s_incl = s_incl + cg * s.w
@@ -297,6 +319,27 @@ def blend_image_bwd_plain(inst, ranges, py_offset: int, width: int,
     return (grad, work) if count_work else grad
 
 
+def patch_cull_plain(inst, ranges, py_offset: int, width: int, height: int,
+                     tile_size: int, patch_w: int | None = None,
+                     patch_h: int | None = None):
+    """The kernels' per-warp cull in plain PyTorch (float32, the formula
+    and margin of `csrc/blend_common.cuh::patch_culled`).
+
+    Returns bool [T, patches, max_count]: True where the patch (patches
+    row-major over the tile, `PATCH_SHAPE` unless given) keeps
+    position j of the tile's range, False where it culls it and past the
+    range's end.
+    """
+    g = _TileGrid(inst, ranges, py_offset, width, height, tile_size,
+                  patch_w, patch_h)
+    keep = [g.patch_keep(g.rows(j)) & (j < g.counts)[:, None]
+            for j in range(g.max_count)]
+    if not keep:
+        return torch.zeros((g.num_tiles, g.num_patches, 0), dtype=torch.bool,
+                           device=inst.device)
+    return torch.stack(keep, dim=-1)
+
+
 class _Step(NamedTuple):
     """Instance position j of every tile against the tile's pixels."""
 
@@ -317,7 +360,8 @@ class _Step(NamedTuple):
 class _TileGrid:
     """Pixel coordinates and ranges of every tile, [T, P] batched."""
 
-    def __init__(self, inst, ranges, py_offset, width, height, tile_size):
+    def __init__(self, inst, ranges, py_offset, width, height, tile_size,
+                 patch_w=None, patch_h=None):
         dev = inst.device
         self.inst = inst
         self.width, self.height, self.ts = width, height, tile_size
@@ -335,11 +379,45 @@ class _TileGrid:
         self.starts = ranges[:, 0].long()
         self.counts = (ranges[:, 1] - ranges[:, 0]).long()
         self.max_count = int(self.counts.max()) if self.num_tiles else 0
+        # the patches of a tile, row-major; their boxes are pixel centres,
+        # inclusive, and are not clipped to the image
+        pw, ph = patch_w or PATCH_SHAPE[0], patch_h or PATCH_SHAPE[1]
+        self.num_patches = (tile_size // pw) * (tile_size // ph)
+        self.patch_of_pixel = ((ly // ph) * (tile_size // pw)
+                               + lx // pw).reshape(self.p)
+        first = torch.stack([torch.argmax((self.patch_of_pixel == k).int())
+                             for k in range(self.num_patches)])
+        self.box_x_lo, self.box_y_lo = self.px[:, first], self.py[:, first]
+        self.box_x_hi = self.box_x_lo + (pw - 1)
+        self.box_y_hi = self.box_y_lo + (ph - 1)
 
-    def step(self, j, trans, done) -> _Step:
-        live = (j < self.counts)[:, None] & ~done
-        rows = self.inst[torch.clamp(self.starts + j,
+    def rows(self, j):
+        """[T, 9] position j of every tile's range (clamped past it)."""
+        return self.inst[torch.clamp(self.starts + j,
                                      max=self.inst.shape[0] - 1)]
+
+    def patch_keep(self, rows):
+        """[T, patches] False where a patch's box holds no pixel the
+        decision path could accept for the tile's instance `rows`."""
+        mx, my = rows[:, 0:1], rows[:, 1:2]
+        cxx, cxy, cyy = rows[:, 2:3], rows[:, 3:4], rows[:, 4:5]
+        ax, bx = self.box_x_lo - mx, self.box_x_hi - mx
+        ay, by = self.box_y_lo - my, self.box_y_hi - my
+        tau = 2.0 * torch.log(255.0 * rows[:, 8:9])
+        ex = torch.maximum(ax.abs(), bx.abs())
+        ey = torch.maximum(ay.abs(), by.abs())
+        mag = cxx * ex * ex + cyy * ey * ey + 2.0 * cxy.abs() * ex * ey
+        limit = tau + CULL_ABS + CULL_REL * mag
+        rx = -cxy / torch.clamp(cyy, min=1e-12)
+        ry = -cxy / torch.clamp(cxx, min=1e-12)
+        qmin = _box_qmin(ax, bx, ay, by, cxx, cxy, cyy, rx, ry)
+        return ~((cxx > 0.0) & (cyy > 0.0) & (qmin > limit))
+
+    def step(self, j, trans, done, cull=False) -> _Step:
+        live = (j < self.counts)[:, None] & ~done
+        rows = self.rows(j)
+        if cull:
+            live = live & self.patch_keep(rows)[:, self.patch_of_pixel]
         mx, my = rows[:, 0:1], rows[:, 1:2]
         cxx, cxy, cyy = rows[:, 2:3], rows[:, 3:4], rows[:, 4:5]
         dx = mx - self.px
