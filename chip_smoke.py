@@ -36,9 +36,22 @@ Phases (any failure exits non-zero before the result line):
      and its per-phase breakdown (CUDA events);
   7. each kernel's time at the bench shapes beside its plain version's and
      its roofline bound, the bench stream's range lengths and the pixel
-     evaluations the kernels make (a counting build), as JSON lines; the
-     `kernels` line is the last but one.
-The last line is {"ok": true, "device": {...}}. Nothing here imports JAX.
+     evaluations the kernels make (a counting build), as JSON lines;
+  8. training from a dataset (`loop_phase`): a DynamicNerf dataset at
+     802x550 whose 40 images (4 timesteps x 8 training, 1 val and 1 test
+     cameras) are renders of the bench avatar written by `utils/png.py`;
+     the avatar's PLY + flame_param.npz saved and read back through
+     `Scene(load_iteration=-1)` bit for bit (parameters, binding, renders);
+     300 iterations of `train.loop.training` from the one-Gaussian-per-face
+     init with densification at 100 and 200, evaluation and PLY at 300 and
+     a checkpoint at 200, both kernels' launches counted around it and the
+     binding's invariants checked after each densification; the checkpoint
+     restored bit for bit and 10 more iterations from it; densification of
+     the 101k avatar after 20 steps of statistics; and `python -m
+     gaussianavatars_torch.train` for 30 iterations in a subprocess.
+The `kernels` line is the last but one, the card's name and power limit
+the line before it. The last line is {"ok": true, "device": {...}}.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -46,8 +59,10 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -62,6 +77,10 @@ TOL_BWD_BENCH = 5e-4
 COUNTING = ("GA_COUNT=1",)    # the kernels' counting build (phase 7)
 MAIN_PATH_RENDERS = 40        # 10 cycles over the 4 timesteps
 TRAIN_STEPS = 20              # 5 cycles over the 4 timesteps
+LOOP_ITERATIONS = 300         # phase 8: the training loop
+RESUME_ITERATIONS = 10        # phase 8: iterations after the resume
+CLI_ITERATIONS = 30           # phase 8: the `train` entry point
+DENSIFY_STEPS = 20            # phase 8: statistics before densifying 101k
 
 # NVIDIA H100 SXM published peaks (dense): float32 outside the tensor
 # cores, HBM3 bandwidth, and the SFU rate (16 MUFU ops per SM per clock,
@@ -195,6 +214,379 @@ def stress_streams(dev, tile_size, width=100, height=70, n=96):
                            faint, 4))
 
 
+def check_binding(model, what):
+    """The binding invariants densification keeps: sorted by face, the
+    face counter equal to the binding's counts, no face empty."""
+    faces = model.flame_model.num_faces
+    counts = torch.bincount(model.binding, minlength=faces)
+    check(bool((model.binding[1:] >= model.binding[:-1]).all()),
+          f"{what}: binding not sorted")
+    check(torch.equal(counts, model.binding_counter),
+          f"{what}: binding_counter differs from the binding's counts")
+    check(bool((counts > 0).all()), f"{what}: {int((counts == 0).sum())} "
+          "faces lost every Gaussian")
+
+
+def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
+               cli_iterations=CLI_ITERATIONS, n_per_face=10):
+    """Phase 8: the avatar trained from a dataset on disk (see the module
+    docstring). Returns the numbers it measured; raises on any failure."""
+    from gaussianavatars_torch.benchmark import (
+        bench_meshes, make_bound_bench_model, make_flame_assets,
+        write_avatar_dataset,
+    )
+    from gaussianavatars_torch.config import (
+        ModelConfig, OptimizationConfig, PipelineConfig,
+    )
+    from gaussianavatars_torch.convert import load_checkpoint
+    from gaussianavatars_torch.data.loader import load_camera_image
+    from gaussianavatars_torch.data.scene import Scene
+    from gaussianavatars_torch.models.flame_gaussians import (
+        FlameGaussianModel,
+    )
+    from gaussianavatars_torch.models.gaussians import AdamState
+    from gaussianavatars_torch.ops import tile_blend
+    from gaussianavatars_torch.train import loop
+    from gaussianavatars_torch.utils.png import (
+        decode_png, encode_png, read_png,
+    )
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def counted():
+        return {"blend_fwd": tile_blend.blend_image_cuda,
+                "blend_bwd": tile_blend.blend_image_bwd_cuda}
+
+    def reset_launches():
+        for fn in counted().values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in counted().items()}
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    saved_env = os.environ.get("FLAME_ASSET_DIR")
+    orig_densify = FlameGaussianModel.densify_and_prune
+    orig_save = loop.save_checkpoint
+    try:
+        # ---- the dataset: renders of the bench avatar --------------------
+        assets = os.path.join(tmp, "assets")
+        make_flame_assets(assets, seed=0)
+        os.environ["FLAME_ASSET_DIR"] = assets    # the model's FLAME head
+        avatar = make_bound_bench_model(n_per_face=n_per_face, device=dev)
+        timesteps = avatar.num_timesteps
+        render = loop.make_render_fn(avatar, PipelineConfig(), width, height,
+                                     avatar.active_sh_degree)
+        black = torch.zeros(3, device=dev)
+
+        def render_avatar(model, cam):
+            return render(model.params, model.flame_param, model.binding,
+                          loop.camera_arrays(cam.to_params(device=dev)),
+                          black, cam.timestep).image
+
+        def image_fn(cam):
+            img = render_avatar(avatar, cam).clamp(0.0, 1.0)
+            return (img * 255.0 + 0.5).to(torch.uint8).permute(
+                1, 2, 0).cpu().numpy()
+
+        t0 = time.perf_counter()
+        data = write_avatar_dataset(
+            os.path.join(tmp, "data"),
+            bench_meshes(np.random.default_rng(0), timesteps), width, height,
+            image_fn=image_fn)
+        out["dataset_s"] = time.perf_counter() - t0
+        first = os.path.join(data, "images", "00000_00.png")
+        with open(first, "rb") as f:
+            raw = f.read()
+        paeth = encode_png(read_png(first), filter_type=4)
+        decode = {}
+        for name, buf in (("none", raw), ("paeth", paeth)):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                img = decode_png(buf)
+                times.append(time.perf_counter() - t0)
+            check(img.shape == (height, width, 3), f"PNG shape {img.shape}")
+            decode[name] = min(times) * 1e3
+        check(np.array_equal(decode_png(paeth), decode_png(raw)),
+              "Paeth-filtered PNG decodes differently")
+        out["png_decode_ms"] = decode
+        print(f"[loop] dataset of {10 * timesteps} {width}x{height} renders "
+              f"in {out['dataset_s']:.2f} s; PNG decode per image "
+              f"{decode['none']:.2f} ms unfiltered, {decode['paeth']:.2f} ms "
+              "Paeth rows")
+
+        # ---- IO at full size --------------------------------------------
+        cfg = dict(source_path=data, bind_to_mesh=True, eval=True,
+                   sh_degree=3)
+        io_dir = os.path.join(tmp, "io")
+        ply = os.path.join(io_dir, "point_cloud", "iteration_1",
+                           "point_cloud.ply")
+        sync()
+        t0 = time.perf_counter()
+        avatar.save_ply(ply)
+        out["ply_save_s"] = time.perf_counter() - t0
+        loaded = FlameGaussianModel.from_assets(3, device=dev)
+        t0 = time.perf_counter()
+        scene = Scene(ModelConfig(model_path=io_dir, **cfg), loaded,
+                      load_iteration=-1)
+        sync()
+        out["scene_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded.load_ply(ply)
+        sync()
+        out["ply_load_s"] = time.perf_counter() - t0
+        for k in avatar.params._fields:
+            check(torch.equal(getattr(loaded.params, k),
+                              getattr(avatar.params, k)), f"PLY {k} differs")
+        check(torch.equal(loaded.binding, avatar.binding), "binding differs")
+        for k, v in avatar.flame_param.items():
+            check(torch.equal(loaded.flame_param[k], v),
+                  f"flame_param.npz {k} differs")
+        for cam in scene.get_val_cameras():
+            check(torch.equal(render_avatar(loaded, cam),
+                              render_avatar(avatar, cam)),
+                  f"timestep {cam.timestep}: the loaded avatar renders "
+                  "differently")
+        print(f"[loop] PLY of {avatar.num_gaussians} Gaussians "
+              f"({os.path.getsize(ply)} bytes): save {out['ply_save_s']:.3f}"
+              f" s, load {out['ply_load_s']:.3f} s (Scene with it "
+              f"{out['scene_load_s']:.3f} s); parameters, binding, FLAME "
+              f"and {len(scene.get_val_cameras())} renders bit-identical")
+
+        # ---- the loop ------------------------------------------------------
+        densified = []
+
+        def checked_densify(self, *args, **kwargs):
+            before = self.num_gaussians
+            result = orig_densify(self, *args, **kwargs)
+            check_binding(self, f"densification {len(densified) + 1}")
+            densified.append((before, self.num_gaussians))
+            return result
+
+        captured = {}
+
+        def keeping_save(model, state, iteration, path):
+            orig_save(model, state, iteration, path)
+            captured[iteration] = model.capture(loop._adam(state))
+            captured[iteration].update(
+                {f"f_{k}": v.to("cpu", copy=True).numpy()
+                 for k, v in state.flame_tr.items()})
+
+        FlameGaussianModel.densify_and_prune = checked_densify
+        loop.save_checkpoint = keeping_save
+        ckpt_at = 2 * iterations // 3
+        # a tenth of the default gradient threshold: from the init (opacity
+        # 0.1) a 550-pixel-high view gives screen gradients of ~1e-4
+        sched = dict(densify_from_iter=iterations // 6,
+                     densification_interval=iterations // 3,
+                     densify_until_iter=5 * iterations // 6,
+                     densify_grad_threshold=2e-5,
+                     opacity_reset_interval=10 * iterations)
+        run_dir = os.path.join(tmp, "run")
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        model, state, info = loop.training(
+            ModelConfig(model_path=run_dir, **cfg),
+            OptimizationConfig(iterations=iterations, **sched),
+            PipelineConfig(), testing_iterations={iterations},
+            saving_iterations={iterations}, checkpoint_iterations={ckpt_at},
+            device=dev)
+        sync()
+        loop_s = time.perf_counter() - t0
+        loop_launches = launches()
+        n_eval = len(scene.get_val_cameras()) + len(scene.get_test_cameras())
+        print(f"[loop] {iterations} iterations, launches {loop_launches} "
+              f"({n_eval} eval renders)")
+        check(loop_launches["blend_fwd"] == iterations + n_eval,
+              f"K1 launched {loop_launches['blend_fwd']} times")
+        check(loop_launches["blend_bwd"] == iterations,
+              f"K2 launched {loop_launches['blend_bwd']} times")
+        history = info["history"]
+        check(all(np.isfinite(v) for _, v in history), "non-finite loss")
+        check(history[-1][1] < history[0][1],
+              f"loss did not fall: {history[0]} -> {history[-1]}")
+        faces = model.flame_model.num_faces
+        check(len(densified) == 2, f"{len(densified)} densifications")
+        check(model.num_gaussians > faces,
+              f"{model.num_gaussians} Gaussians, no growth from {faces}")
+        for name in (f"point_cloud/iteration_{iterations}/point_cloud.ply",
+                     f"point_cloud/iteration_{iterations}/flame_param.npz",
+                     f"chkpnt{ckpt_at}.npz", "cfg.json", "run_summary.json"):
+            check(os.path.exists(os.path.join(run_dir, name)),
+                  f"{name} missing")
+        # log points between which no densification, eval or save runs
+        times = dict(info["timeline"])
+        lo = min(k for k in times if k >= iterations // 15)
+        hi = max(k for k in times if k <= iterations // 3)
+        steady_ms = 1e3 * (times[hi] - times[lo]) / (hi - lo)
+        metrics = info["metrics"][iterations]
+        out.update(
+            loop_ms_per_iteration=1e3 * loop_s / iterations,
+            loop_steady_ms_per_iteration=steady_ms,
+            loop_launches=loop_launches, n_gaussians=model.num_gaussians,
+            densify=[dict(before=b, after=a, s=s) for (b, a), s in
+                     zip(densified, info["densify_s"])],
+            psnr={split: m["psnr"] for split, m in metrics.items()},
+            first_loss=history[0][1], last_loss=history[-1][1])
+        print(f"[loop] {out['loop_ms_per_iteration']:.2f} ms/iteration over "
+              f"the whole loop (host clock, {loop_s:.2f} s), "
+              f"{steady_ms:.2f} ms/iteration between iterations {lo} and "
+              f"{hi}; EMA loss {history[0][1]:.5f} -> {history[-1][1]:.5f}; "
+              f"densifications " + ", ".join(
+                  f"{d['before']} -> {d['after']} in {1e3 * d['s']:.1f} ms"
+                  for d in out["densify"]))
+        for split, m in metrics.items():
+            print(f"[loop] {split}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in m.items()))
+
+        # ---- the bare step at the loop's shapes ---------------------------
+        # the loop's steady window again without the loop: a fresh init,
+        # the same cameras, their ground truth already on the device
+        bare = FlameGaussianModel.from_assets(3, device=dev)
+        bare_scene = Scene(ModelConfig(model_path=os.path.join(tmp, "bare"),
+                                       **cfg), bare)
+        opt = OptimizationConfig()
+        bare_state = loop.initial_state(bare)
+        fixed = {k: v for k, v in bare.flame_param.items()
+                 if k not in bare_state.flame_tr}
+        lrs = loop.lr_pytree(opt, opt.position_lr_init * bare.spatial_lr_scale,
+                             bare_state.flame_tr, bare.spatial_lr_scale)
+        step = loop.make_train_step(bare, opt, PipelineConfig(), width, height,
+                                    bare.active_sh_degree, timesteps)
+        views = [(loop.camera_arrays(c.to_params(device=dev)),
+                  torch.tensor(load_camera_image(c), device=dev), c.timestep)
+                 for c in bare_scene.get_train_cameras()]
+
+        def bare_steps(start, count):
+            nonlocal bare_state
+            for i in range(start, start + count):
+                ca, gt, t = views[i % len(views)]
+                bare_state, _, _ = step(bare_state, fixed, bare.binding, ca,
+                                        gt, black, t, lrs)
+
+        bare_steps(0, lo)
+        sync()
+        t0 = time.perf_counter()
+        bare_steps(lo, hi - lo)
+        sync()
+        out["bare_step_ms"] = 1e3 * (time.perf_counter() - t0) / (hi - lo)
+        print(f"[loop] the bare train step at the loop's shapes (fresh "
+              f"init, same cameras, ground truth on the device): "
+              f"{out['bare_step_ms']:.2f} ms/step over steps {lo}-{hi}; the "
+              f"loop {steady_ms:.2f} ms/iteration over the same iterations")
+
+        # ---- resume ------------------------------------------------------
+        restored = FlameGaussianModel.from_assets(3, device=dev)
+        restored.flame_param = {k: v.clone()
+                                for k, v in model.flame_param.items()}
+        iteration, adam, flame_tr = load_checkpoint(
+            os.path.join(run_dir, f"chkpnt{ckpt_at}.npz"), restored)
+        again = restored.capture(adam)
+        again.update({f"f_{k}": v.cpu().numpy() for k, v in flame_tr.items()})
+        check(iteration == ckpt_at, f"checkpoint iteration {iteration}")
+        check(sorted(again) == sorted(captured[ckpt_at]),
+              "restored state has other keys")
+        for k, v in captured[ckpt_at].items():
+            check(np.array_equal(np.asarray(again[k]), np.asarray(v)),
+                  f"restored {k} differs from the captured state")
+        reset_launches()
+        _, resumed, rinfo = loop.training(
+            ModelConfig(model_path=os.path.join(tmp, "resumed"), **cfg),
+            OptimizationConfig(iterations=ckpt_at + RESUME_ITERATIONS,
+                               **sched),
+            PipelineConfig(), start_checkpoint=os.path.join(
+                run_dir, f"chkpnt{ckpt_at}.npz"), device=dev)
+        resume_launches = launches()
+        check(resumed.count == ckpt_at + RESUME_ITERATIONS,
+              f"resumed Adam count {resumed.count}")
+        check(np.isfinite(rinfo["ema_loss"]), "resumed loss not finite")
+        check(resume_launches == {"blend_fwd": RESUME_ITERATIONS,
+                                  "blend_bwd": RESUME_ITERATIONS},
+              f"resumed launches {resume_launches}")
+        print(f"[loop] checkpoint {ckpt_at} restored bit for bit "
+              f"({len(again)} arrays); {RESUME_ITERATIONS} more iterations, "
+              f"loss {rinfo['ema_loss']:.5f}, launches {resume_launches}")
+
+        # ---- densification of the 101k avatar ----------------------------
+        FlameGaussianModel.densify_and_prune = orig_densify
+        avatar.reset_stats()
+        state = loop.initial_state(avatar)
+        fixed = {k: v for k, v in avatar.flame_param.items()
+                 if k not in state.flame_tr}
+        lrs = loop.lr_pytree(opt, 1e-3, state.flame_tr, 1.0)
+        step = loop.make_train_step(avatar, opt, PipelineConfig(), width,
+                                    height, 3, timesteps)
+        # a noise target, as bench.py's: the dataset's images are the
+        # avatar's own renders and would leave it without gradients
+        gt = torch.as_tensor(np.random.default_rng(2).random(
+            (3, height, width)).astype(np.float32), device=dev)
+        cams = scene.get_train_cameras()
+        for i in range(DENSIFY_STEPS):
+            cam = cams[i % len(cams)]
+            state, _, _ = step(state, fixed, avatar.binding,
+                               loop.camera_arrays(cam.to_params(device=dev)),
+                               gt, black, cam.timestep, lrs)
+        with torch.no_grad():
+            face_scaling = avatar.face_frames_at(avatar.flame_param,
+                                                 0).scaling
+        before = avatar.num_gaussians
+        sync()
+        t0 = time.perf_counter()
+        adam = avatar.densify_and_prune(
+            AdamState(state.mu["gauss"], state.nu["gauss"], state.count),
+            opt.densify_grad_threshold, 0.005, scene.cameras_extent, None,
+            opt.percent_dense, face_scaling, seed=1)
+        sync()
+        out["densify_bench"] = dict(before=before,
+                                    after=avatar.num_gaussians,
+                                    s=time.perf_counter() - t0)
+        check_binding(avatar, "101k densification")
+        check(adam.mu.xyz.shape[0] == avatar.num_gaussians,
+              "Adam state and parameters differ in length")
+        check(avatar.num_gaussians != before, "the 101k avatar did not change")
+        print(f"[loop] densify_and_prune at the bench size: {before} -> "
+              f"{avatar.num_gaussians} Gaussians in "
+              f"{1e3 * out['densify_bench']['s']:.1f} ms after "
+              f"{DENSIFY_STEPS} steps")
+
+        # ---- the entry point -----------------------------------------------
+        cli_dir = os.path.join(tmp, "cli")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "gaussianavatars_torch.train", "-s", data,
+             "-m", cli_dir, "--bind_to_mesh", "--eval", "--iterations",
+             str(cli_iterations), "--save_iterations", str(cli_iterations),
+             "--test_iterations", str(cli_iterations),
+             "--checkpoint_iterations", str(cli_iterations),
+             "--device", dev.type],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=600)
+        out["cli_s"] = time.perf_counter() - t0
+        check(res.returncode == 0, f"train entry point exited "
+              f"{res.returncode}: {res.stderr[-3000:]}")
+        check(os.path.exists(os.path.join(
+            cli_dir, "point_cloud", f"iteration_{cli_iterations}",
+            "point_cloud.ply")), "the train entry point wrote no PLY")
+        tail = [line for line in res.stdout.splitlines() if line.strip()]
+        print(f"[loop] python -m gaussianavatars_torch.train: "
+              f"{cli_iterations} iterations in {out['cli_s']:.1f} s "
+              f"(process included); {tail[-2] if len(tail) > 1 else tail}")
+    finally:
+        FlameGaussianModel.densify_and_prune = orig_densify
+        loop.save_checkpoint = orig_save
+        if saved_env is None:
+            os.environ.pop("FLAME_ASSET_DIR", None)
+        else:
+            os.environ["FLAME_ASSET_DIR"] = saved_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -218,6 +610,13 @@ def main() -> int:
     from gaussianavatars_torch.train.optim import tree_leaves
 
     dev = resolve_device("cuda")
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds of the phase that just ended (host clock)."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase[0], 2)
+        t_phase[0] = now
 
     # ---- 1. device --------------------------------------------------------
     smi = nvidia_smi_line()
@@ -225,6 +624,7 @@ def main() -> int:
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
 
+    lap("device")
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:   # the counting build beside it
@@ -238,6 +638,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
+    lap("build")
     # ---- 3. K1 against its plain version ------------------------------------
     def stream(scene, camera, tile_size, row0=0, rows=None, sh_degree=2):
         t = {k: torch.as_tensor(v, device=dev) for k, v in scene.items()}
@@ -335,6 +736,7 @@ def main() -> int:
                                 b_args, TOL_BWD_BENCH, 100))
     k2_plain_ms = bwd_errs[-1][2]
 
+    lap("k1_k2_vs_plain")
     # ---- 4. goldens on the card ---------------------------------------------
     for fname, scene, camera, atol in (
         ("render_48x40_seed0.npz", small_scene(80, 0), small_cam, 3e-5),
@@ -355,6 +757,7 @@ def main() -> int:
               f"(atol {atol:.0e}, rtol 1e-4)")
         check(excess <= 0, f"golden {fname} differs")
 
+    lap("goldens")
     # ---- 5. the serving path ------------------------------------------------
     render = make_render_fn(model, PipelineConfig(), WIDTH, HEIGHT,
                             model.active_sh_degree)
@@ -420,6 +823,7 @@ def main() -> int:
     print("[stages] ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                       stages.items()))
 
+    lap("serving")
     # ---- 6. the training path -----------------------------------------------
     opt_cfg = OptimizationConfig()
     state = initial_state(model)
@@ -509,6 +913,7 @@ def main() -> int:
     print("[train phases] ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                             phases.items()))
 
+    lap("training")
     # ---- 7. the kernels at the bench shapes ---------------------------------
     width, height = b_args[1], b_args[2]
     k1_ms = cuda_ms(lambda: tile_blend.blend_image(b_inst, b_ranges, *b_args),
@@ -551,6 +956,12 @@ def main() -> int:
           f"{k2_bound_ms:.4f} ms (bytes {k2_t_bytes:.4f}, ops "
           f"{k2_t_ops:.4f})")
 
+    lap("kernels_at_bench")
+    # ---- 8. training from a dataset ------------------------------------------
+    loop_line = loop_phase(dev, WIDTH, HEIGHT)
+    print(json.dumps(dict(what="loop", **loop_line)))
+    lap("loop")
+
     ranges_line = dict(what="ranges", **range_stats(b_ranges))
     print(json.dumps(ranges_line))
     # what the kernels walk, from the counting build of the same sources
@@ -585,6 +996,8 @@ def main() -> int:
         "source": "gaussianavatars_torch/csrc/blend_fwd.cu",
         "replaces": "gaussianavatars_tpu/ops/blend_pallas.py:437",
         "launches": launches["blend_fwd"],
+        "loop_launches": loop_line["loop_launches"]["blend_fwd"],
+        "loop_iterations": LOOP_ITERATIONS,
         "max_abs_err": max(errs),
         "pixel_evaluations": walked["blend_fwd"]["pixel_evaluations"],
         "ms": k1_ms,
@@ -598,6 +1011,8 @@ def main() -> int:
         "source": "gaussianavatars_torch/csrc/blend_bwd.cu",
         "replaces": "gaussianavatars_tpu/ops/blend_pallas.py:763",
         "launches": train_launches["blend_bwd"],
+        "loop_launches": loop_line["loop_launches"]["blend_bwd"],
+        "loop_iterations": LOOP_ITERATIONS,
         "max_abs_err": max(e[0] for e in bwd_errs),
         "max_column_rel_err": max(e[1] for e in bwd_errs),
         "pixel_evaluations": walked["blend_bwd"]["pixel_evaluations"],
@@ -607,6 +1022,9 @@ def main() -> int:
         "bound_by": "bytes" if k2_t_bytes >= k2_t_ops else "operations",
         "library_ms": None,
     }]}
+    lap("counting_build")
+    print(json.dumps(dict(what="phase_seconds", **phase_s,
+                          total=round(sum(phase_s.values()), 2))))
     print(smi)
     print(json.dumps(kernel_line))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,9 @@ and deterministic from a seed:
                              101,440 in all) on the synthetic FLAME head
                              with the real topology: every render drives
                              FLAME -> face frames -> binding chain
+  * `write_avatar_dataset`   a DynamicNerf dataset on disk (cameras around
+                             the head, FLAME parameters per timestep,
+                             PNG images) for the training loop
 
 Both use the same numpy random streams as the JAX package's builders, so
 the two packages build the same avatar from the same seed. The FLAME
@@ -21,14 +24,17 @@ package needs nothing outside itself.
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import pickle
 import tempfile
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from gaussianavatars_torch.data.readers import read_cameras_from_transforms
 from gaussianavatars_torch.device import resolve_device
 from gaussianavatars_torch.models.flame import FlameHead
 from gaussianavatars_torch.models.flame_gaussians import FlameGaussianModel
@@ -53,6 +59,7 @@ from gaussianavatars_torch.ops.transforms import (
     perspective_projection,
     world_to_view,
 )
+from gaussianavatars_torch.utils.png import write_png
 
 WIDTH, HEIGHT = 802, 550
 N_GAUSSIANS = 100_000
@@ -204,6 +211,24 @@ def scene_to_model(scene: dict, sh_degree: int = SH_DEGREE) -> GaussianModel:
     return model
 
 
+def bench_meshes(rng: np.random.Generator, num_timesteps: int) -> dict:
+    """The bound bench avatar's per-timestep FLAME parameters, drawn from
+    `rng`: shared shape, random expressions and jaw poses."""
+    return {
+        i: dict(
+            shape=rng.normal(0, 0.05, 300).astype(np.float32),
+            expr=rng.normal(0, 0.1, 100).astype(np.float32),
+            rotation=np.zeros(3, np.float32),
+            neck_pose=np.zeros(3, np.float32),
+            jaw_pose=np.abs(rng.normal(0, 0.05, 3)).astype(np.float32),
+            eyes_pose=np.zeros(6, np.float32),
+            translation=np.zeros(3, np.float32),
+            static_offset=np.zeros((FLAME_V, 3), np.float32),
+        )
+        for i in range(num_timesteps)
+    }
+
+
 def make_bound_bench_model(sh_degree=SH_DEGREE, n_per_face=10, seed=0,
                            num_timesteps=4,
                            device="cuda") -> FlameGaussianModel:
@@ -221,20 +246,7 @@ def make_bound_bench_model(sh_degree=SH_DEGREE, n_per_face=10, seed=0,
     model = FlameGaussianModel(sh_degree, head)
 
     rng = np.random.default_rng(seed)
-    meshes = {
-        i: dict(
-            shape=rng.normal(0, 0.05, 300).astype(np.float32),
-            expr=rng.normal(0, 0.1, 100).astype(np.float32),
-            rotation=np.zeros(3, np.float32),
-            neck_pose=np.zeros(3, np.float32),
-            jaw_pose=np.abs(rng.normal(0, 0.05, 3)).astype(np.float32),
-            eyes_pose=np.zeros(6, np.float32),
-            translation=np.zeros(3, np.float32),
-            static_offset=np.zeros((FLAME_V, 3), np.float32),
-        )
-        for i in range(num_timesteps)
-    }
-    model.load_meshes(meshes, {})
+    model.load_meshes(bench_meshes(rng, num_timesteps), {})
 
     # n_per_face Gaussians per face, binding sorted by face
     f = head.num_faces
@@ -272,6 +284,7 @@ def make_bound_bench_model(sh_degree=SH_DEGREE, n_per_face=10, seed=0,
         key: torch.as_tensor(np.ascontiguousarray(a), device=dev)
         for key, a in arrays.items()})
     model.binding = torch.as_tensor(binding, device=dev)
+    model.binding_counter = torch.bincount(model.binding, minlength=f)
     model.spatial_lr_scale = 1.0
     model.reset_stats()
     return model
@@ -308,3 +321,77 @@ def bound_bench_scene(model: FlameGaussianModel, timestep: int = 0) -> dict:
         m3, sc, q, op, shs = world_space_gaussians(model.params,
                                                    model.binding, frames)
     return dict(means3d=m3, scales=sc, quats=q, opacities=op, shs=shs)
+
+
+def _look_at_c2w(angle: float, elev: float, dist: float) -> np.ndarray:
+    """Camera-to-world (COLMAP axes: y down, z forward) of a camera at
+    yaw `angle` and pitch `elev` on a sphere of radius `dist` around the
+    origin, looking at it (the bench camera at angle 0, elev 0)."""
+    pos = dist * np.array([math.cos(elev) * math.sin(angle), math.sin(elev),
+                           -math.cos(elev) * math.cos(angle)])
+    fwd = -pos / np.linalg.norm(pos)
+    right = np.cross(np.array([0.0, -1.0, 0.0]), fwd)
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+    c2w[:3, 3] = pos
+    return c2w
+
+
+def write_avatar_dataset(
+    root: str, meshes: dict, width: int, height: int,
+    n_train_cams: int = 8, dist: float = 1.0,
+    image_fn: Optional[Callable] = None,
+) -> str:
+    """Write a DynamicNerf dataset to `root` and return `root`.
+
+    `meshes` {timestep: FLAME parameters} (as `bench_meshes` makes them)
+    go to `flame_param/<t>.npz`, the shape to `canonical_flame_param.npz`.
+    Every timestep is seen by `n_train_cams` training cameras spread over
+    +-60 degrees of yaw and two pitches, plus one validation and one test
+    camera between them, all at distance `dist` with the bench camera's
+    horizontal field of view (0.5 rad), at width x height. Their
+    `transforms_{train,val,test}.json` are the reference's (OpenGL camera
+    axes). The images are `image_fn(camera)` for each `data.cameras.Camera`
+    as the readers load it (uint8 [H, W, 3] or [H, W, 4]), by default
+    uniform noise from `numpy.random.default_rng(0)`, written as PNGs by
+    `utils/png.py`.
+    """
+    fovx = 0.5
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "flame_param"), exist_ok=True)
+    for t, mesh in meshes.items():
+        np.savez(os.path.join(root, "flame_param", f"{t:05d}.npz"), **mesh)
+    np.savez(os.path.join(root, "canonical_flame_param.npz"),
+             shape=meshes[min(meshes)]["shape"])
+
+    n_cams = n_train_cams + 2
+    splits = {"train": [], "val": [], "test": []}
+    for t in sorted(meshes):
+        for c in range(n_cams):
+            split = ("train" if c < n_train_cams
+                     else "val" if c == n_train_cams else "test")
+            # evaluation cameras sit between the training ones
+            offset = 0.5 if split != "train" else 0.0
+            angle = math.radians(-60.0 + 120.0 * ((c % n_train_cams) + offset)
+                                 / max(n_train_cams - 1, 1))
+            elev = 0.15 if c % 2 else -0.15
+            c2w = _look_at_c2w(angle, elev, dist)
+            c2w[:3, 1:3] *= -1            # COLMAP -> OpenGL axes
+            splits[split].append({
+                "file_path": f"images/{t:05d}_{c:02d}.png",
+                "transform_matrix": c2w.tolist(),
+                "camera_angle_x": fovx, "w": width, "h": height,
+                "timestep_index": t, "camera_index": c,
+                "flame_param_path": f"flame_param/{t:05d}.npz",
+            })
+    rng = np.random.default_rng(0)
+    for split, frames in splits.items():
+        name = f"transforms_{split}.json"
+        with open(os.path.join(root, name), "w") as f:
+            json.dump({"camera_angle_x": fovx, "frames": frames}, f)
+        for cam in read_cameras_from_transforms(root, name, False):
+            img = (image_fn(cam) if image_fn is not None else
+                   rng.integers(0, 256, (height, width, 3), dtype=np.uint8))
+            write_png(cam.image_path, img)
+    return root

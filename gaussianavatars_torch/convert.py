@@ -5,6 +5,11 @@ with `np.asarray` on the JAX side; nothing of JAX is imported here) and
 builds the port's model, so that both packages render the same avatar and,
 with the Adam state and the densification statistics carried too, compute
 the same train step.
+
+`load_checkpoint` reads a training checkpoint (`chkpnt<N>.npz`) into the
+port's model. Both packages write checkpoints under the same keys, so it
+reads the JAX package's as well as the port's, and the JAX package's
+`restore` reads the port's.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 from gaussianavatars_torch.device import resolve_device
 from gaussianavatars_torch.models.flame import FlameHead
 from gaussianavatars_torch.models.flame_gaussians import FlameGaussianModel
-from gaussianavatars_torch.models.gaussians import GaussianParams
+from gaussianavatars_torch.models.gaussians import AdamState, GaussianParams
 
 STATS = ("max_radii2d", "xyz_gradient_accum", "denom")
 
@@ -95,3 +100,22 @@ def from_jax_arrays(
              "flame": flame(m["flame"])}
             for m in (mu, nu)) + (int(count),)
     return model
+
+
+def load_checkpoint(path: str, model) -> tuple[int, AdamState, dict]:
+    """Restore `model` (a `GaussianModel` or `FlameGaussianModel` on its
+    device) from the checkpoint file `path` of either package: the `g_*`
+    keys through `model.restore` (which raises unless the checkpoint is
+    labelled `features_rest_layout: cmajor`), the `f_*` FLAME trainables
+    into `model.flame_param`. Returns (iteration, the Gaussians' Adam
+    state, the FLAME trainables as tensors)."""
+    with np.load(path) as f:
+        data = dict(f)
+    adam_g = model.restore({k[2:]: v for k, v in data.items()
+                            if k.startswith("g_")}, source=path)
+    flame_tr = {k[2:]: torch.as_tensor(np.asarray(v, np.float32),
+                                       device=model.device)
+                for k, v in data.items() if k.startswith("f_")}
+    if flame_tr:
+        model.merge_flame_trainable(flame_tr)
+    return int(data["iteration"]), adam_g, flame_tr

@@ -1,9 +1,12 @@
-"""Gaussian splats rigged to a FLAME head (port of the render and
-train-step subset of `gaussianavatars_tpu/models/flame_gaussians.py`;
-reference scene/flame_gaussian_model.py:21-154)."""
+"""Gaussian splats rigged to a FLAME head (port of
+`gaussianavatars_tpu/models/flame_gaussians.py`; reference
+scene/flame_gaussian_model.py:21-269). `motion_path` and `disable_fid` of
+`load_ply` (the offline tools' reenactment options) are not ported yet."""
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -60,18 +63,45 @@ def face_frames_from_verts(verts: torch.Tensor,
 
 
 class FlameGaussianModel(GaussianModel):
-    """Gaussians bound to the faces of a FLAME head, driven per timestep."""
+    """Gaussians bound to the faces of a FLAME head, driven per timestep.
+
+    Without a `binding`, the model starts with one Gaussian per face
+    (reference :39-41); `binding_counter` [F] counts the Gaussians of each
+    face throughout densification.
+    """
 
     def __init__(self, sh_degree: int, flame_head: FlameHead,
                  params: Optional[GaussianParams] = None,
                  binding: Optional[torch.Tensor] = None,
-                 not_finetune_flame_params: bool = False):
+                 not_finetune_flame_params: bool = False,
+                 disable_flame_static_offset: bool = False):
         super().__init__(sh_degree, params)
         self.flame_model = flame_head
-        self.binding = binding
         self.not_finetune_flame_params = not_finetune_flame_params
+        self.disable_flame_static_offset = disable_flame_static_offset
         self.flame_param: Optional[dict[str, torch.Tensor]] = None
-        self.num_timesteps = 1
+        self.flame_param_orig: Optional[dict[str, np.ndarray]] = None
+        n_faces = flame_head.num_faces
+        if binding is None:
+            binding = torch.arange(n_faces, device=self.device)
+        self.binding = binding
+        self.binding_counter = torch.bincount(binding, minlength=n_faces)
+
+    @classmethod
+    def from_assets(cls, sh_degree: int, asset_dir: Optional[str] = None,
+                    device: str | torch.device = "cuda",
+                    **kwargs) -> "FlameGaussianModel":
+        """The model on a FLAME head read from `asset_dir` (`flame2023.pkl`
+        and `head_template_mesh.obj`; default: $FLAME_ASSET_DIR, else
+        flame_model/assets/flame), 300 shape and 100 expression dims."""
+        paths = {}
+        if asset_dir is not None:
+            paths = dict(
+                flame_model_path=os.path.join(asset_dir, "flame2023.pkl"),
+                flame_template_mesh_path=os.path.join(
+                    asset_dir, "head_template_mesh.obj"))
+        return cls(sh_degree, FlameHead(300, 100, device=device, **paths),
+                   **kwargs)
 
     @property
     def device(self) -> torch.device:
@@ -82,8 +112,9 @@ class FlameGaussianModel(GaussianModel):
                     tgt_test_meshes: dict | None = None):
         """Build the per-timestep FLAME parameter dict from dataset meshes
         (reference flame_gaussian_model.py:43-89). Shape and static offset
-        come from the first mesh; poses and expressions from the target
-        meshes when given (reenactment), else from the meshes."""
+        come from the first mesh (the static offset is zero with
+        `disable_flame_static_offset`); poses and expressions from the
+        target meshes when given (reenactment), else from the meshes."""
         if self.flame_param is not None:
             return
         meshes = {**train_meshes, **test_meshes}
@@ -93,11 +124,14 @@ class FlameGaussianModel(GaussianModel):
         num_verts = self.flame_model.num_verts
 
         first = meshes[min(meshes)]
-        static_offset = np.asarray(first["static_offset"], np.float32)
-        static_offset = static_offset.reshape(-1, 3)
-        if static_offset.shape[0] != num_verts:
-            pad = num_verts - static_offset.shape[0]
-            static_offset = np.pad(static_offset, ((0, pad), (0, 0)))
+        if self.disable_flame_static_offset:
+            static_offset = np.zeros((num_verts, 3), np.float32)
+        else:
+            static_offset = np.asarray(first["static_offset"], np.float32)
+            static_offset = static_offset.reshape(-1, 3)
+            if static_offset.shape[0] != num_verts:
+                pad = num_verts - static_offset.shape[0]
+                static_offset = np.pad(static_offset, ((0, pad), (0, 0)))
 
         n_expr = np.asarray(first["expr"]).reshape(-1).shape[0]
         param = {
@@ -118,6 +152,7 @@ class FlameGaussianModel(GaussianModel):
                     param[k][i].shape)
         self.flame_param = {k: torch.as_tensor(v, device=self.device)
                             for k, v in param.items()}
+        self.flame_param_orig = {k: v.copy() for k, v in param.items()}
 
     def flame_trainable(self) -> dict:
         """The finetuned FLAME subset (the model's own tensors; the train
@@ -149,3 +184,28 @@ class FlameGaussianModel(GaussianModel):
         """Frames for the binding chain at one timestep."""
         verts = self.verts_at(flame_param, timestep)
         return face_frames_from_verts(verts[0], self.flame_model.faces)
+
+    # ------------------------------------------------------------------
+    # IO (reference flame_gaussian_model.py:219-269)
+    # ------------------------------------------------------------------
+
+    def save_ply(self, path: str):
+        """The PLY, and `flame_param.npz` beside it."""
+        super().save_ply(path)
+        if self.flame_param is not None:
+            np.savez(str(Path(path).parent / "flame_param.npz"),
+                     **{k: v.detach().cpu().numpy()
+                        for k, v in self.flame_param.items()})
+
+    def load_ply(self, path: str, has_target: bool = False):
+        """The PLY, and, unless the scene drives a target's motion
+        (`has_target`), the `flame_param.npz` beside it."""
+        super().load_ply(path)
+        npz_path = str(Path(path).parent / "flame_param.npz")
+        if not has_target and os.path.exists(npz_path):
+            with np.load(npz_path) as data:
+                self.flame_param = {
+                    k: torch.as_tensor(np.asarray(v, np.float32),
+                                       device=self.device)
+                    for k, v in data.items()}
+            self.num_timesteps = int(self.flame_param["expr"].shape[0])

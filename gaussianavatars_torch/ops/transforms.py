@@ -56,6 +56,14 @@ def camera_center_from_world_view(world_view_t: np.ndarray) -> np.ndarray:
     return np.linalg.inv(world_view_t)[3, :3].astype(np.float32)
 
 
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 def _safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     norm2 = torch.sum(x * x, dim=-1, keepdim=True)
     return x * (1.0 / torch.sqrt(torch.clamp(norm2, min=eps)))

@@ -1,23 +1,49 @@
-"""The render and the train step of the training driver (port of
-`gaussianavatars_tpu/train/loop.py::make_render_fn`, `make_train_step`,
-`StepState` and `lr_pytree`). The host loop (densification, data,
-checkpoints) is not ported yet."""
+"""The training driver (port of `gaussianavatars_tpu/train/loop.py`;
+reference train.py:35-314): the render and the train step, and the host
+loop around them (`training`: data, the xyz schedule, the SH warmup,
+densification, opacity resets, evaluation, saving and checkpoints).
+
+Left out, as TPU devices: capacity and level-bucket growth, the overflow
+probes and the asynchronous precompilation. The tensorboard writer and the
+network viewer are not ported yet; `training` raises when given either.
+"""
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from gaussianavatars_torch.config import OptimizationConfig, PipelineConfig
+from gaussianavatars_torch.config import (
+    ModelConfig,
+    OptimizationConfig,
+    PipelineConfig,
+    save_config,
+)
+from gaussianavatars_torch.device import resolve_device
 from gaussianavatars_torch.models.gaussians import (
+    AdamState,
+    GaussianModel,
     GaussianParams,
     world_space_gaussians,
 )
 from gaussianavatars_torch.ops.projection import CameraParams
 from gaussianavatars_torch.ops.rasterize_tiles import RenderOutput, rasterize
+from gaussianavatars_torch.ops.ssim import ssim
 from gaussianavatars_torch.train import optim
 from gaussianavatars_torch.train.losses import compute_losses
+from gaussianavatars_torch.utils.image import l1_loss, psnr
+from gaussianavatars_torch.utils.schedules import expon_lr
+from gaussianavatars_torch.utils.system import safe_state
+
+PRINT_EVERY = 100          # iterations between progress lines
+# device-resident ground-truth images (bytes)
+GT_DEV_CACHE_BUDGET = int(float(os.environ.get("GA_GT_DEVICE_CACHE_GB", "2"))
+                          * (1 << 30))
 
 
 class CameraArrays(NamedTuple):
@@ -234,3 +260,290 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
         return new_state, losses, out.instance_total
 
     return step
+
+
+# ----------------------------------------------------------------------------
+# Host loop
+# ----------------------------------------------------------------------------
+
+def _adam(state: StepState) -> AdamState:
+    return AdamState(mu=state.mu["gauss"], nu=state.nu["gauss"],
+                     count=state.count)
+
+
+def _after_surgery(model, state: StepState, adam_g: AdamState) -> StepState:
+    """The step state rebuilt from the model after a surgery replaced its
+    tensors (densification, opacity reset): nothing from before it stays
+    in the state."""
+    return StepState(
+        params=model.params, flame_tr=state.flame_tr,
+        mu={"gauss": adam_g.mu, "flame": state.mu["flame"]},
+        nu={"gauss": adam_g.nu, "flame": state.nu["flame"]},
+        count=adam_g.count, max_radii2d=model.max_radii2d,
+        grad_accum=model.xyz_gradient_accum, denom=model.denom)
+
+
+def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
+             pipe_cfg: PipelineConfig, testing_iterations=(),
+             saving_iterations=(), checkpoint_iterations=(),
+             start_checkpoint: Optional[str] = None, log_every: int = 10,
+             tb_writer=None, gui=None, seed: int = 0,
+             device: str | torch.device = "cuda"):
+    """Train an avatar on the dataset of `model_cfg.source_path` (reference
+    train.py:35-214, the JAX package's `training`).
+
+    One iteration takes the next camera of the shuffled epoch, runs the
+    train step at its resolution and timestep (the xyz learning rate from
+    `expon_lr` times the scene's `spatial_lr_scale`; one more SH degree
+    every 1000 iterations, one step function per degree), then, on the
+    schedule of `opt_cfg`, densifies (with the face scaling of this
+    camera's timestep) and resets opacities; saves the PLY at
+    `saving_iterations`, evaluates the val and test splits at
+    `testing_iterations` and writes `chkpnt<N>.npz` at
+    `checkpoint_iterations`. `start_checkpoint` resumes from a checkpoint
+    of either package.
+
+    The loss is read on the host only every `log_every` iterations (the
+    previous iteration's, which the device has finished, as the JAX loop
+    reads it; the last iteration's own at the end) into an EMA, printed
+    every PRINT_EVERY iterations. The model (FLAME-bound with
+    `bind_to_mesh`, its FLAME head from $FLAME_ASSET_DIR) lives on
+    `device`.
+
+    Returns (model, state, info); info holds "ema_loss", "elapsed",
+    "history" [(iteration, ema)], "timeline" [(iteration, wall time)],
+    "metrics" {iteration: evaluate_splits result}, "densify_s" [seconds of
+    each densification] and "summary" (written to run_summary.json).
+    """
+    if tb_writer is not None:
+        raise NotImplementedError("tensorboard logging is not ported yet")
+    if gui is not None:
+        raise NotImplementedError("the network viewer (gui_poll) is not "
+                                  "ported yet")
+    from gaussianavatars_torch.convert import load_checkpoint
+    from gaussianavatars_torch.data.loader import CameraLoader
+    from gaussianavatars_torch.data.scene import Scene
+
+    dev = resolve_device(device)
+    os.makedirs(model_cfg.model_path, exist_ok=True)
+    save_config(model_cfg.model_path, model_cfg)
+    # reference safe_state: the camera shuffle uses the global `random`
+    safe_state(seed)
+
+    if model_cfg.bind_to_mesh:
+        from gaussianavatars_torch.models.flame_gaussians import (
+            FlameGaussianModel,
+        )
+
+        model = FlameGaussianModel.from_assets(
+            model_cfg.sh_degree, device=dev,
+            not_finetune_flame_params=model_cfg.not_finetune_flame_params,
+            disable_flame_static_offset=model_cfg.disable_flame_static_offset)
+    else:
+        model = GaussianModel(model_cfg.sh_degree, device=dev)
+    scene = Scene(model_cfg, model)
+    bound = model.binding is not None
+
+    first_iter = 0
+    flame_tr = model.flame_trainable() if bound else {}
+    mu, nu, count = optim.init({"gauss": model.params, "flame": flame_tr})
+    if start_checkpoint:
+        first_iter, adam_g, flame_tr = load_checkpoint(start_checkpoint,
+                                                       model)
+        # the FLAME moments are not checkpointed (as in the JAX package)
+        mu = {"gauss": adam_g.mu,
+              "flame": optim.tree_map(torch.zeros_like, flame_tr)}
+        nu = {"gauss": adam_g.nu,
+              "flame": optim.tree_map(torch.zeros_like, flame_tr)}
+        count = adam_g.count
+    flame_fixed = ({k: v for k, v in model.flame_param.items()
+                    if k not in flame_tr} if bound else {})
+
+    loader = CameraLoader(scene.get_train_cameras(),
+                          resolution_arg=model_cfg.resolution)
+    state = StepState(params=model.params, flame_tr=flame_tr, mu=mu, nu=nu,
+                      count=count, max_radii2d=model.max_radii2d,
+                      grad_accum=model.xyz_gradient_accum, denom=model.denom)
+    step_fns = {}
+    gt_cache, gt_bytes = {}, 0     # device-resident ground truth
+    bg_cache = {}
+    ema_loss, prev_losses = None, None
+    history, timeline, metrics, densify_s = [], [], {}, []
+    events = {"densify": 0, "opacity_reset": 0}
+    t_start = time.time()
+
+    try:
+        for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
+            xyz_lr = float(expon_lr(
+                iteration,
+                opt_cfg.position_lr_init * model.spatial_lr_scale,
+                opt_cfg.position_lr_final * model.spatial_lr_scale,
+                lr_delay_mult=opt_cfg.position_lr_delay_mult,
+                max_steps=opt_cfg.position_lr_max_steps))
+            if iteration % 1000 == 0:           # SH warmup
+                model.one_up_sh_degree()
+
+            cam, gt = next(loader)
+            w, h = cam.resolution(model_cfg.resolution)
+            key = (w, h, model.active_sh_degree)
+            if key not in step_fns:
+                step_fns[key] = make_train_step(
+                    model, opt_cfg, pipe_cfg, w, h, model.active_sh_degree,
+                    model.num_timesteps)
+            gt_key = (cam.image_path or (cam.camera_id, cam.timestep), w, h)
+            gt_dev = gt_cache.get(gt_key)
+            if gt_dev is None:
+                gt_dev = torch.tensor(gt, device=dev)
+                nbytes = gt_dev.element_size() * gt_dev.nelement()
+                if gt_bytes + nbytes <= GT_DEV_CACHE_BUDGET:
+                    gt_cache[gt_key] = gt_dev
+                    gt_bytes += nbytes
+            bg = bg_cache.get(cam.bg.tobytes())
+            if bg is None:
+                bg = bg_cache[cam.bg.tobytes()] = torch.tensor(
+                    cam.bg, dtype=torch.float32, device=dev)
+            lrs = lr_pytree(opt_cfg, xyz_lr, state.flame_tr,
+                            model.spatial_lr_scale)
+            state, losses, _ = step_fns[key](
+                state, flame_fixed, model.binding,
+                camera_arrays(cam.to_params(w, h, device=dev)), gt_dev, bg,
+                cam.timestep or 0, lrs)
+
+            if iteration % log_every == 0 or iteration == opt_cfg.iterations:
+                src = (losses if iteration == opt_cfg.iterations
+                       or prev_losses is None else prev_losses)
+                total = src["total"].item()
+                ema_loss = (total if ema_loss is None
+                            else 0.4 * total + 0.6 * ema_loss)
+                history.append((iteration, ema_loss))
+                timeline.append((iteration, time.time()))
+            if iteration % PRINT_EVERY == 0 or iteration == opt_cfg.iterations:
+                print(f"[ITER {iteration}] loss {ema_loss:.7f}, "
+                      f"{model.num_gaussians} Gaussians")
+            prev_losses = losses
+
+            # write back for the host-side surgery (the step updated these
+            # tensors in place; the assignments only name them)
+            model.params = state.params
+            model.max_radii2d = state.max_radii2d
+            model.xyz_gradient_accum = state.grad_accum
+            model.denom = state.denom
+            if bound:
+                model.merge_flame_trainable(state.flame_tr)
+
+            if iteration in saving_iterations:
+                print(f"[ITER {iteration}] Saving Gaussians")
+                scene.save(iteration)
+
+            if iteration < opt_cfg.densify_until_iter:
+                if (iteration > opt_cfg.densify_from_iter and
+                        iteration % opt_cfg.densification_interval == 0):
+                    t0 = time.perf_counter()
+                    size_threshold = (
+                        20 if iteration > opt_cfg.opacity_reset_interval
+                        else None)
+                    face_scaling = None
+                    if bound:
+                        with torch.no_grad():
+                            face_scaling = model.face_frames_at(
+                                model.flame_param, cam.timestep or 0).scaling
+                    adam_g = model.densify_and_prune(
+                        _adam(state), opt_cfg.densify_grad_threshold, 0.005,
+                        scene.cameras_extent, size_threshold,
+                        opt_cfg.percent_dense, face_scaling, seed=iteration,
+                        screen_size_prune=opt_cfg.screen_size_prune)
+                    state = _after_surgery(model, state, adam_g)
+                    events["densify"] += 1
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    densify_s.append(time.perf_counter() - t0)
+                if (iteration % opt_cfg.opacity_reset_interval == 0 or (
+                        model_cfg.white_background
+                        and iteration == opt_cfg.densify_from_iter)):
+                    state = _after_surgery(model, state,
+                                           model.reset_opacity(_adam(state)))
+                    events["opacity_reset"] += 1
+
+            if iteration in testing_iterations:
+                metrics[iteration] = evaluate_splits(
+                    model, scene, model_cfg, pipe_cfg, state, flame_fixed)
+                for split, m in metrics[iteration].items():
+                    print(f"[ITER {iteration}] Evaluating {split}: "
+                          + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
+
+            if iteration in checkpoint_iterations:
+                print(f"[ITER {iteration}] Saving Checkpoint")
+                save_checkpoint(model, state, iteration, os.path.join(
+                    model_cfg.model_path, f"chkpnt{iteration}.npz"))
+    finally:
+        loader.stop()
+
+    elapsed = time.time() - t_start
+    summary = {
+        "iterations": int(opt_cfg.iterations),
+        "elapsed_s": round(elapsed, 2),
+        "final_ema_loss": float(ema_loss or 0.0),
+        "n_alive": int(model.num_gaussians),
+        "densify": events["densify"],
+        "opacity_reset": events["opacity_reset"],
+    }
+    with open(os.path.join(model_cfg.model_path, "run_summary.json"),
+              "w") as f:
+        json.dump(summary, f, indent=2)
+    return model, state, {"ema_loss": ema_loss or 0.0, "elapsed": elapsed,
+                          "history": history, "timeline": timeline,
+                          "metrics": metrics, "densify_s": densify_s,
+                          "summary": summary}
+
+
+def save_checkpoint(model, state: StepState, iteration: int, path: str):
+    """`chkpnt<N>.npz` under the JAX package's keys: `g_*` the model's
+    `capture`, `f_*` the FLAME trainables, `iteration`."""
+    data = {f"g_{k}": v for k, v in model.capture(_adam(state)).items()}
+    for k, v in state.flame_tr.items():
+        data[f"f_{k}"] = v.detach().cpu().numpy()
+    data["iteration"] = iteration
+    np.savez(path, **data)
+
+
+@torch.no_grad()
+def evaluate_splits(model, scene, model_cfg: ModelConfig,
+                    pipe_cfg: PipelineConfig, state: StepState,
+                    flame_fixed: dict) -> dict:
+    """Mean L1, PSNR and SSIM of the val (novel view) and test
+    (self-reenactment) splits, rendered with the state's parameters against
+    the clamped ground truth (reference train.py:256-314). LPIPS is not
+    ported yet. Returns {split: {"l1_loss", "psnr", "ssim"}} for the splits
+    that have cameras."""
+    from gaussianavatars_torch.data.loader import iterate_once
+
+    bound = model.binding is not None
+    flame_full = {**flame_fixed, **state.flame_tr} if bound else {}
+    dev = model.device
+    results = {}
+    for split, cameras in (("val", scene.get_val_cameras()),
+                           ("test", scene.get_test_cameras())):
+        if not cameras:
+            continue
+        render_fns = {}
+        l1s, psnrs, ssims = [], [], []
+        for cam, gt in iterate_once(cameras, model_cfg.resolution):
+            w, h = cam.resolution(model_cfg.resolution)
+            if (w, h) not in render_fns:
+                render_fns[w, h] = make_render_fn(model, pipe_cfg, w, h,
+                                                  model.active_sh_degree)
+            img = render_fns[w, h](
+                state.params, flame_full, model.binding,
+                camera_arrays(cam.to_params(w, h, device=dev)),
+                torch.tensor(cam.bg, dtype=torch.float32, device=dev),
+                cam.timestep or 0).image.clamp(0.0, 1.0)
+            gt_t = torch.tensor(gt, device=dev).clamp(0.0, 1.0)
+            l1s.append(l1_loss(img, gt_t))
+            psnrs.append(psnr(img, gt_t)[0])
+            ssims.append(ssim(img, gt_t))
+        results[split] = {
+            "l1_loss": float(torch.stack(l1s).mean()),
+            "psnr": float(torch.stack(psnrs).mean()),
+            "ssim": float(torch.stack(ssims).mean()),
+        }
+    return results

@@ -1,7 +1,8 @@
 """The port's serving slice end to end: the FLAME-bound avatar carried
 across from the JAX package renders as JAX `make_render_fn` does (jnp
 backend, atol 5e-5), the entry point runs on the CPU when asked and raises
-without a GPU otherwise, and the port imports nothing of JAX."""
+without a GPU otherwise, and the port imports nothing of JAX, of the JAX
+package, of the tests, nor PIL, tqdm or tensorboardX."""
 
 import ast
 import os
@@ -127,17 +128,26 @@ def test_kernel_build_raises_without_nvcc():
         pytest.skip("nvcc is present")
 
 
+FORBIDDEN = ("jax", "jaxlib", "gaussianavatars_tpu", "tests", "PIL", "tqdm",
+             "tensorboardX")
+
+
 def test_port_imports_no_jax():
+    """Importing every module of the port loads none of FORBIDDEN beyond
+    what numpy and torch load themselves (the GPU host has no JAX, PIL,
+    tqdm or tensorboardX; this host's torch imports tqdm)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import numpy, torch\n"
+        "before = set(sys.modules)\n"
         "import gaussianavatars_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'gaussianavatars_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.startswith('gaussianavatars_tpu')]\n"
-        "assert len(mods) >= 15, mods\n"
+        "bad = [m for m in set(sys.modules) - before\n"
+        f"       if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert len(mods) >= 25, mods\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -146,17 +156,32 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
 
 
-def test_chip_smoke_imports_no_jax():
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+def _imported_names(path):
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
-            names.append(node.module or "")
-    assert names
+            names.append("." if node.level else node.module or "")
+    return names
+
+
+def test_port_sources_import_no_jax():
+    """No import statement of the port, at module level or inside a
+    function, names a module of FORBIDDEN."""
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "gaussianavatars_torch")):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(sources) >= 30
+    for path in sources:
+        for name in _imported_names(path):
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_chip_smoke_imports_no_jax():
+    names = _imported_names(os.path.join(REPO, "chip_smoke.py"))
+    assert "gaussianavatars_torch.train.loop" in names
     for name in names:
-        top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "gaussianavatars_tpu", "tests"), \
-            name
+        assert name.split(".")[0] not in FORBIDDEN, name
