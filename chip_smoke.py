@@ -48,7 +48,21 @@ Phases (any failure exits non-zero before the result line):
      binding's invariants checked after each densification; the checkpoint
      restored bit for bit and 10 more iterations from it; densification of
      the 101k avatar after 20 steps of statistics; and `python -m
-     gaussianavatars_torch.train` for 30 iterations in a subprocess.
+     gaussianavatars_torch.train` for 30 iterations in a subprocess;
+  9. the offline tools on phase 8's 101,440-Gaussian model directory and
+     dataset (`offline_phase`): `render` over every split, each PNG within
+     1 level of `make_render_fn`'s image and >= 45 dB against its ground
+     truth (renders of the same avatar); reenactment through
+     `--target_path` of a second dataset with other expressions and poses,
+     within 1 level of `make_render_fn` with the target's FLAME parameters
+     and unlike the avatar's own motion; `--render_mesh` on the val split
+     (mesh coverage, the overlay's difference from the ground truth);
+     `python -m gaussianavatars_torch.metrics` in a subprocess with
+     synthetic LPIPS weights from seed 0 (LPIPS of identical images <=
+     1e-6); 20 train steps of the bench avatar with all three FLAME
+     regularizers and a random dynamic offset beside 20 plain steps. The
+     renders run in process, where K1 counts one launch per image and K1
+     and K2 one each per step.
 The `kernels` line is the last but one, the card's name and power limit
 the line before it. The last line is {"ok": true, "device": {...}}.
 Nothing here imports JAX.
@@ -81,6 +95,9 @@ LOOP_ITERATIONS = 300         # phase 8: the training loop
 RESUME_ITERATIONS = 10        # phase 8: iterations after the resume
 CLI_ITERATIONS = 30           # phase 8: the `train` entry point
 DENSIFY_STEPS = 20            # phase 8: statistics before densifying 101k
+REG_STEPS = 20                # phase 9: regularized train steps
+REGULARIZERS = dict(lambda_dynamic_offset=1.0, lambda_dynamic_offset_std=1.0,
+                    lambda_laplacian=1.0)
 
 # NVIDIA H100 SXM published peaks (dense): float32 outside the tensor
 # cores, HBM3 bandwidth, and the SFU rate (16 MUFU ops per SM per clock,
@@ -227,10 +244,13 @@ def check_binding(model, what):
           "faces lost every Gaussian")
 
 
-def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
+def loop_phase(dev, width, height, work, iterations=LOOP_ITERATIONS,
                cli_iterations=CLI_ITERATIONS, n_per_face=10):
     """Phase 8: the avatar trained from a dataset on disk (see the module
-    docstring). Returns the numbers it measured; raises on any failure."""
+    docstring), under the directory `work`, where the FLAME assets
+    (`assets`, also left in $FLAME_ASSET_DIR), the dataset (`data`) and
+    the avatar's model directory (`io`) stay for phase 9. Returns the
+    numbers it measured; raises on any failure."""
     from gaussianavatars_torch.benchmark import (
         bench_meshes, make_bound_bench_model, make_flame_assets,
         write_avatar_dataset,
@@ -267,13 +287,11 @@ def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
         return {name: fn.launches for name, fn in counted().items()}
 
     out = {}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
-    saved_env = os.environ.get("FLAME_ASSET_DIR")
     orig_densify = FlameGaussianModel.densify_and_prune
     orig_save = loop.save_checkpoint
     try:
         # ---- the dataset: renders of the bench avatar --------------------
-        assets = os.path.join(tmp, "assets")
+        assets = os.path.join(work, "assets")
         make_flame_assets(assets, seed=0)
         os.environ["FLAME_ASSET_DIR"] = assets    # the model's FLAME head
         avatar = make_bound_bench_model(n_per_face=n_per_face, device=dev)
@@ -294,7 +312,7 @@ def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
 
         t0 = time.perf_counter()
         data = write_avatar_dataset(
-            os.path.join(tmp, "data"),
+            os.path.join(work, "data"),
             bench_meshes(np.random.default_rng(0), timesteps), width, height,
             image_fn=image_fn)
         out["dataset_s"] = time.perf_counter() - t0
@@ -322,7 +340,7 @@ def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
         # ---- IO at full size --------------------------------------------
         cfg = dict(source_path=data, bind_to_mesh=True, eval=True,
                    sh_degree=3)
-        io_dir = os.path.join(tmp, "io")
+        io_dir = os.path.join(work, "io")
         ply = os.path.join(io_dir, "point_cloud", "iteration_1",
                            "point_cloud.ply")
         sync()
@@ -386,7 +404,7 @@ def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
                      densify_until_iter=5 * iterations // 6,
                      densify_grad_threshold=2e-5,
                      opacity_reset_interval=10 * iterations)
-        run_dir = os.path.join(tmp, "run")
+        run_dir = os.path.join(work, "run")
         reset_launches()
         sync()
         t0 = time.perf_counter()
@@ -448,7 +466,7 @@ def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
         # the loop's steady window again without the loop: a fresh init,
         # the same cameras, their ground truth already on the device
         bare = FlameGaussianModel.from_assets(3, device=dev)
-        bare_scene = Scene(ModelConfig(model_path=os.path.join(tmp, "bare"),
+        bare_scene = Scene(ModelConfig(model_path=os.path.join(work, "bare"),
                                        **cfg), bare)
         opt = OptimizationConfig()
         bare_state = loop.initial_state(bare)
@@ -496,7 +514,7 @@ def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
                   f"restored {k} differs from the captured state")
         reset_launches()
         _, resumed, rinfo = loop.training(
-            ModelConfig(model_path=os.path.join(tmp, "resumed"), **cfg),
+            ModelConfig(model_path=os.path.join(work, "resumed"), **cfg),
             OptimizationConfig(iterations=ckpt_at + RESUME_ITERATIONS,
                                **sched),
             PipelineConfig(), start_checkpoint=os.path.join(
@@ -555,7 +573,7 @@ def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
               f"{DENSIFY_STEPS} steps")
 
         # ---- the entry point -----------------------------------------------
-        cli_dir = os.path.join(tmp, "cli")
+        cli_dir = os.path.join(work, "cli")
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-m", "gaussianavatars_torch.train", "-s", data,
@@ -579,11 +597,345 @@ def loop_phase(dev, width, height, iterations=LOOP_ITERATIONS,
     finally:
         FlameGaussianModel.densify_and_prune = orig_densify
         loop.save_checkpoint = orig_save
-        if saved_env is None:
-            os.environ.pop("FLAME_ASSET_DIR", None)
+    return out
+
+
+def _level_diff(a, b) -> int:
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def _png_psnr(a, b) -> float:
+    """PSNR in dB of two uint8 images (inf when they are equal)."""
+    mse = float(np.mean(((a.astype(np.float64) - b) / 255.0) ** 2))
+    return float("inf") if mse == 0.0 else -10.0 * float(np.log10(mse))
+
+
+def synthetic_lpips_weights(path, seed=0):
+    """LPIPS weights of the VGG16 shapes drawn from `seed` (the real ones
+    are a download the repository does not hold)."""
+    from gaussianavatars_torch.metrics_lib.lpips import _VGG_STAGES
+
+    rng = np.random.default_rng(seed)
+    weights, ci, in_ch = {}, 0, 3
+    for ch, n_convs in _VGG_STAGES:
+        for _ in range(n_convs):
+            weights[f"conv{ci}_w"] = (rng.standard_normal(
+                (ch, in_ch, 3, 3), np.float32) * np.sqrt(2.0 / (9 * in_ch))
+            ).astype(np.float32)
+            weights[f"conv{ci}_b"] = np.zeros(ch, np.float32)
+            in_ch = ch
+            ci += 1
+    for i, (ch, _) in enumerate(_VGG_STAGES):
+        weights[f"lin{i}"] = np.abs(rng.normal(0, 0.05, ch)).astype(
+            np.float32)
+    np.savez(path, **weights)
+    return path
+
+
+def offline_phase(dev, width, height, work, steps=REG_STEPS):
+    """Phase 9: the trained avatar of phase 8's model directory
+    (`<work>/io`, 101,440 Gaussians, its dataset `<work>/data`) rendered,
+    reenacted, overlaid and scored by the offline entry points, and the
+    bench avatar trained with the FLAME regularizers (see the module
+    docstring). Returns the numbers it measured; raises on any failure."""
+    from gaussianavatars_torch import metrics as metrics_cli
+    from gaussianavatars_torch.benchmark import (
+        bench_camera, bench_meshes, make_bound_bench_model,
+        write_avatar_dataset,
+    )
+    from gaussianavatars_torch.config import (
+        ModelConfig, OptimizationConfig, PipelineConfig, save_config,
+    )
+    from gaussianavatars_torch.data.scene import Scene
+    from gaussianavatars_torch.metrics_lib.lpips import LPIPS
+    from gaussianavatars_torch.models.flame_gaussians import (
+        FlameGaussianModel,
+    )
+    from gaussianavatars_torch.ops import tile_blend
+    from gaussianavatars_torch.render import __main__ as render_cli
+    from gaussianavatars_torch.render.mesh_renderer import (
+        rasterize_mesh, render_mesh_overlay,
+    )
+    from gaussianavatars_torch.train import loop
+    from gaussianavatars_torch.utils.png import read_png
+
+    k1, k2 = tile_blend.blend_image_cuda, tile_blend.blend_image_bwd_cuda
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(argv):
+        """The render entry point in process: (stats, host s, K1 and K2
+        launches)."""
+        k1.launches = k2.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        stats = render_cli.main(argv + ["--device", dev.type])
+        sync()
+        return (stats, time.perf_counter() - t0,
+                {"blend_fwd": k1.launches, "blend_bwd": k2.launches})
+
+    data, model_dir = os.path.join(work, "data"), os.path.join(work, "io")
+    cfg = dict(source_path=data, model_path=model_dir, bind_to_mesh=True,
+               eval=True, sh_degree=3)
+    save_config(model_dir, ModelConfig(**cfg))
+    model = FlameGaussianModel.from_assets(3, device=dev)
+    scene = Scene(ModelConfig(**cfg), model, load_iteration=-1,
+                  shuffle=False)
+    it = scene.loaded_iter
+    render = loop.make_render_fn(model, PipelineConfig(), width, height, 3)
+    black = torch.zeros(3, device=dev)
+
+    def reference(cam, flame_param):
+        img = render(model.params, flame_param, model.binding,
+                     loop.camera_arrays(cam.to_params(device=dev)), black,
+                     cam.timestep).image
+        return render_cli.to_uint8(img.clamp(0.0, 1.0)).cpu().numpy()
+
+    out, launches = {}, {}
+    # ---- (a) every split --------------------------------------------------
+    stats, wall, launches["splits"] = run(["-m", model_dir])
+    images = sum(st["images"] for st in stats.values())
+    splits = {"train": scene.get_train_cameras(),
+              "val": scene.get_val_cameras(),
+              "test": scene.get_test_cameras()}
+    check(images == sum(len(c) for c in splits.values()),
+          f"render wrote {images} images per split {stats}")
+    check(launches["splits"] == {"blend_fwd": images, "blend_bwd": 0},
+          f"render launches {launches['splits']} for {images} images")
+    level, psnrs = 0, []
+    for split, cams in splits.items():
+        base = os.path.join(model_dir, split, f"ours_{it}")
+        for idx, cam in enumerate(cams):
+            got = read_png(os.path.join(base, "renders", f"{idx:05d}.png"))
+            level = max(level, _level_diff(got, reference(
+                cam, model.flame_param)))
+            psnrs.append(_png_psnr(got, read_png(os.path.join(
+                base, "gt", f"{idx:05d}.png"))))
+    check(level <= 1, f"a written render is {level} levels from "
+          "make_render_fn's")
+    check(min(psnrs) >= 45.0, f"PSNR {min(psnrs)} dB against the ground "
+          "truth")
+    render_s = sum(st["render_s"] for st in stats.values())
+    write_s = sum(st["write_s"] for st in stats.values())
+    out["render"] = dict(
+        images=images, launches=launches["splits"], max_level_diff=level,
+        gt_psnr_min=str(min(psnrs)), entry_point_s=wall,
+        images_per_s=images / wall, render_ms_per_image=1e3 * render_s /
+        images, png_write_ms_per_image=1e3 * write_s / images)
+    print(f"[offline] render: {images} images in {wall:.2f} s "
+          f"({images / wall:.1f} images/s, model load included); render + "
+          f"copy {1e3 * render_s / images:.2f} ms/image, PNG encode "
+          f"{1e3 * write_s / images:.2f} ms/image (pool threads); every "
+          f"PNG within {level} level of make_render_fn; PSNR against the "
+          f"ground truth >= {min(psnrs)} dB; launches {launches['splits']}")
+
+    # ---- (b) reenactment ----------------------------------------------------
+    tgt = bench_meshes(np.random.default_rng(7), model.num_timesteps)
+    rng = np.random.default_rng(8)
+    for mesh in tgt.values():
+        for k, n in (("rotation", 3), ("neck_pose", 3), ("eyes_pose", 6)):
+            mesh[k] = rng.normal(0, 0.05, n).astype(np.float32)
+    target = write_avatar_dataset(os.path.join(work, "target"), tgt, width,
+                                  height, n_train_cams=2)
+    stats, wall, launches["reenact"] = run(["-m", model_dir, "-t", target])
+    name = os.path.basename(target)
+    tgt_cams = Scene(ModelConfig(**cfg, target_path=target),
+                     FlameGaussianModel.from_assets(3, device=dev),
+                     load_iteration=-1, shuffle=False).get_train_cameras()
+    n_tgt = stats[name]["images"]
+    check(n_tgt == len(tgt_cams) == 4 * model.num_timesteps,
+          f"reenactment wrote {n_tgt} images")
+    check(launches["reenact"] == {"blend_fwd": n_tgt, "blend_bwd": 0},
+          f"reenactment launches {launches['reenact']}")
+    tgt_param = dict(model.flame_param)
+    for k in ("expr", "rotation", "neck_pose", "jaw_pose", "eyes_pose",
+              "translation"):
+        tgt_param[k] = torch.as_tensor(
+            np.stack([tgt[t][k] for t in sorted(tgt)]), device=dev)
+    level = 0
+    base = os.path.join(model_dir, name, f"ours_{it}", "renders")
+    for idx, cam in enumerate(tgt_cams):
+        got = read_png(os.path.join(base, f"{idx:05d}.png"))
+        level = max(level, _level_diff(got, reference(cam, tgt_param)))
+    check(level <= 1, f"a reenacted render is {level} levels from "
+          "make_render_fn's with the target's parameters")
+    # the target's first camera is the training split's first camera
+    own = read_png(os.path.join(model_dir, "train", f"ours_{it}", "renders",
+                                "00000.png"))
+    moved = np.abs(read_png(os.path.join(base, "00000.png")).astype(
+        np.int16) - own).mean()
+    check(moved > 0.1, "the reenactment renders the avatar's own motion")
+    out["reenact"] = dict(images=n_tgt, launches=launches["reenact"],
+                          max_level_diff=level,
+                          mean_level_diff_to_own_motion=float(moved),
+                          images_per_s=n_tgt / wall)
+    print(f"[offline] reenactment: {n_tgt} images in {wall:.2f} s, within "
+          f"{level} level of make_render_fn with the target's FLAME; mean "
+          f"difference to the avatar's own motion {moved:.2f} levels")
+
+    # ---- (c) mesh overlays --------------------------------------------------
+    stats, wall, launches["mesh"] = run(
+        ["-m", model_dir, "--skip_train", "--skip_test", "--render_mesh"])
+    n_val = stats["val"]["images"]
+    check(launches["mesh"] == {"blend_fwd": n_val, "blend_bwd": 0},
+          f"--render_mesh launches {launches['mesh']}")
+    cam = splits["val"][0]
+    with torch.no_grad():
+        verts = model.verts_at(model.flame_param, cam.timestep)[0]
+    params = cam.to_params(device=dev)
+    coverage = float(rasterize_mesh(verts, model.flame_model.faces,
+                                    params)[1].mean())
+    check(coverage > 0.0, "the mesh covers no pixel")
+    overlay_ms = cuda_ms(lambda: render_mesh_overlay(
+        verts, model.flame_model.faces, params), 10)
+    base = os.path.join(model_dir, "val", f"ours_{it}")
+    diffs = [np.abs(read_png(os.path.join(base, "renders_mesh", f)).astype(
+        np.float64) - read_png(os.path.join(base, "gt", f))).mean() / 255.0
+        for f in sorted(os.listdir(os.path.join(base, "renders_mesh")))]
+    check(len(diffs) == n_val and min(diffs) > 0,
+          f"{len(diffs)} overlays, differences {diffs}")
+    out["mesh"] = dict(images=n_val, coverage=coverage,
+                       overlay_mean_abs_diff_to_gt=float(np.mean(diffs)),
+                       overlay_ms=overlay_ms,
+                       entry_point_mesh_ms_per_image=1e3 * stats["val"][
+                           "mesh_s"] / n_val)
+    print(f"[offline] mesh overlays: {n_val} images, coverage "
+          f"{coverage:.3f}, mean |overlay - gt| {np.mean(diffs):.4f}; "
+          f"overlay {overlay_ms:.2f} ms (CUDA events), "
+          f"{out['mesh']['entry_point_mesh_ms_per_image']:.2f} ms/image in "
+          "the entry point (copy to the host included)")
+
+    # ---- (d) metrics --------------------------------------------------------
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    weights = os.path.join(REPO, "chiprun_out", "lpips_synthetic.npz")
+    saved = os.environ.get("LPIPS_WEIGHTS")
+    try:
+        synthetic_lpips_weights(weights, seed=0)
+        os.environ["LPIPS_WEIGHTS"] = weights
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "gaussianavatars_torch.metrics", "-m",
+             model_dir, "--device", dev.type],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"metrics entry point exited "
+              f"{res.returncode}: {res.stderr[-3000:]}")
+        with open(os.path.join(model_dir, "results.json")) as f:
+            results = json.load(f)[f"ours_{it}"]
+        with open(os.path.join(model_dir, "per_view.json")) as f:
+            per_view = json.load(f)[f"ours_{it}"]
+        check(sorted(results) == ["LPIPS", "PSNR", "SSIM"],
+              f"results.json holds {sorted(results)}")
+        # the renders are the ground truth's own pixels
+        lpips_same = max(per_view["LPIPS"].values())
+        check(lpips_same <= 1e-6, f"LPIPS of identical images {lpips_same}")
+
+        lpips = LPIPS(weights, device=dev)
+        a = torch.as_tensor(read_png(os.path.join(
+            model_dir, "val", f"ours_{it}", "renders", "00000.png")),
+            device=dev).permute(2, 0, 1).float() / 255.0
+        b = torch.as_tensor(np.random.default_rng(3).random(
+            (3, height, width)).astype(np.float32), device=dev)
+        with torch.no_grad():
+            same = float(lpips(a, a)[0])
+            apart = float(lpips(a, b)[0])
+            lpips_ms = cuda_ms(lambda: lpips(a, b), 5)
+        check(same <= 1e-6 and apart > 0.0,
+              f"LPIPS same {same}, render vs noise {apart}")
+        check(not (torch.backends.cudnn.allow_tf32
+                   or torch.backends.cuda.matmul.allow_tf32),
+              "TF32 is on after LPIPS")
+        # the tool in process, PNG reads included, the network built
+        per_image = {}
+        os.environ["LPIPS_WEIGHTS"] = weights + ".absent"
+        for key, fn in (("with_lpips", lpips), ("without_lpips", None)):
+            t0 = time.perf_counter()
+            metrics_cli.evaluate([model_dir], ("test", "val", "train"),
+                                 dev.type, lpips_fn=fn)
+            per_image[key] = 1e3 * (time.perf_counter() - t0) / images
+    finally:
+        if saved is None:
+            os.environ.pop("LPIPS_WEIGHTS", None)
         else:
-            os.environ["FLAME_ASSET_DIR"] = saved_env
-        shutil.rmtree(tmp, ignore_errors=True)
+            os.environ["LPIPS_WEIGHTS"] = saved
+        if os.path.exists(weights):
+            os.remove(weights)
+    out["metrics"] = dict(
+        results=results, lpips_identical_max=lpips_same, lpips_same=same,
+        lpips_render_vs_noise=apart, lpips_ms_per_pair=lpips_ms,
+        entry_point_s=cli_s, ms_per_image=per_image)
+    print(f"[offline] python -m gaussianavatars_torch.metrics: "
+          f"{cli_s:.1f} s (process included); "
+          + ", ".join(f"{k} {v:.6f}" for k, v in results.items())
+          + f"; LPIPS of identical images <= {lpips_same:.2e}, render vs "
+          f"noise {apart:.4f}, {lpips_ms:.2f} ms per {width}x{height} pair (CUDA "
+          f"events); in process {per_image['with_lpips']:.2f} ms/image "
+          f"with LPIPS, {per_image['without_lpips']:.2f} without")
+
+    # ---- (e) the FLAME regularizers ------------------------------------------
+    bench = make_bound_bench_model(device=dev)
+    off = bench.flame_param["dynamic_offset"]
+    bench.flame_param["dynamic_offset"] = torch.as_tensor(
+        np.random.default_rng(9).normal(0, 1e-3, tuple(off.shape)).astype(
+            np.float32), device=dev)
+    ca = loop.camera_arrays(bench_camera(width, height, device=dev))
+    gt = torch.as_tensor(np.random.default_rng(2).random(
+        (3, height, width)).astype(np.float32), device=dev)
+    ones = torch.ones(3, device=dev)
+    configs = {"plain": OptimizationConfig(),
+               "regularized": OptimizationConfig(**REGULARIZERS)}
+    steps_ms = {k: [] for k in configs}
+    reg_losses = []
+    for _ in range(2):
+        for key, opt in configs.items():
+            state = loop.initial_state(bench)
+            fixed = {k: v for k, v in bench.flame_param.items()
+                     if k not in state.flame_tr}
+            lrs = loop.lr_pytree(opt, 1e-3, state.flame_tr, 1.0)
+            step = loop.make_train_step(bench, opt, PipelineConfig(), width,
+                                        height, 3, bench.num_timesteps)
+            for i in range(2):                       # warm-up
+                state, _, _ = step(state, fixed, bench.binding, ca, gt, ones,
+                                   i % bench.num_timesteps, lrs)
+            sync()
+            k1.launches = k2.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(steps):
+                state, losses, _ = step(state, fixed, bench.binding, ca, gt,
+                                        ones, i % bench.num_timesteps, lrs)
+                if key == "regularized":
+                    reg_losses.append(losses)
+            end.record()
+            sync()
+            steps_ms[key].append(start.elapsed_time(end) / steps)
+            launches[key] = {"blend_fwd": k1.launches,
+                             "blend_bwd": k2.launches}
+            check(launches[key] == {"blend_fwd": steps, "blend_bwd": steps},
+                  f"{key} steps launched {launches[key]}")
+    for losses in reg_losses:
+        for k in ("dy_off", "dynamic_offset_std", "lap"):
+            v = float(losses[k])
+            check(np.isfinite(v) and v != 0.0, f"regularizer {k} is {v}")
+        check(bool(torch.isfinite(losses["total"])), "non-finite loss")
+    last = {k: float(v) for k, v in reg_losses[-1].items()}
+    out["regularizers"] = dict(
+        weights=REGULARIZERS, steps=steps, launches=launches["regularized"],
+        losses=last, regularized_step_ms=steps_ms["regularized"],
+        plain_step_ms=steps_ms["plain"])
+    print(f"[offline] {steps} regularized steps at {width}x{height}, "
+          f"{bench.num_gaussians} Gaussians: "
+          + ", ".join(f"{k} {last[k]:.6g}" for k in
+                      ("dy_off", "dynamic_offset_std", "lap", "total"))
+          + "; ms/step (CUDA events, two alternating rounds) regularized "
+          + ", ".join(f"{v:.3f}" for v in steps_ms["regularized"])
+          + ", plain " + ", ".join(f"{v:.3f}" for v in steps_ms["plain"])
+          + f"; launches {launches['regularized']}")
+    out["launches"] = launches
     return out
 
 
@@ -957,10 +1309,23 @@ def main() -> int:
           f"{k2_t_ops:.4f})")
 
     lap("kernels_at_bench")
-    # ---- 8. training from a dataset ------------------------------------------
-    loop_line = loop_phase(dev, WIDTH, HEIGHT)
-    print(json.dumps(dict(what="loop", **loop_line)))
-    lap("loop")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    saved_env = os.environ.get("FLAME_ASSET_DIR")
+    try:
+        # ---- 8. training from a dataset --------------------------------------
+        loop_line = loop_phase(dev, WIDTH, HEIGHT, workdir)
+        print(json.dumps(dict(what="loop", **loop_line)))
+        lap("loop")
+        # ---- 9. offline render, reenactment, overlays, metrics, regularizers
+        offline_line = offline_phase(dev, WIDTH, HEIGHT, workdir)
+        print(json.dumps(dict(what="offline", **offline_line)))
+        lap("offline")
+    finally:
+        if saved_env is None:
+            os.environ.pop("FLAME_ASSET_DIR", None)
+        else:
+            os.environ["FLAME_ASSET_DIR"] = saved_env
+        shutil.rmtree(workdir, ignore_errors=True)
 
     ranges_line = dict(what="ranges", **range_stats(b_ranges))
     print(json.dumps(ranges_line))
@@ -998,6 +1363,12 @@ def main() -> int:
         "launches": launches["blend_fwd"],
         "loop_launches": loop_line["loop_launches"]["blend_fwd"],
         "loop_iterations": LOOP_ITERATIONS,
+        "offline_launches": {k: v["blend_fwd"] for k, v in
+                             offline_line["launches"].items()},
+        "offline_calls": {"splits": offline_line["render"]["images"],
+                          "reenact": offline_line["reenact"]["images"],
+                          "mesh": offline_line["mesh"]["images"],
+                          "plain": REG_STEPS, "regularized": REG_STEPS},
         "max_abs_err": max(errs),
         "pixel_evaluations": walked["blend_fwd"]["pixel_evaluations"],
         "ms": k1_ms,
@@ -1013,6 +1384,8 @@ def main() -> int:
         "launches": train_launches["blend_bwd"],
         "loop_launches": loop_line["loop_launches"]["blend_bwd"],
         "loop_iterations": LOOP_ITERATIONS,
+        "offline_launches": {k: v["blend_bwd"] for k, v in
+                             offline_line["launches"].items()},
         "max_abs_err": max(e[0] for e in bwd_errs),
         "max_column_rel_err": max(e[1] for e in bwd_errs),
         "pixel_evaluations": walked["blend_bwd"]["pixel_evaluations"],

@@ -75,9 +75,9 @@ FLAME_SHAPE_DIMS = 400  # 300 shape + 100 expr
 
 
 def make_flame_assets(dirpath, seed=0, v=FLAME_V, f=FLAME_F):
-    """Write a FLAME-like pickle and template OBJ to `dirpath` (the JAX
-    package's tests/flame_fixtures.py generator, whose landmark file the
-    port does not read).
+    """Write a FLAME-like pickle, template OBJ and landmark embedding to
+    `dirpath` (the JAX package's tests/flame_fixtures.py generator, array
+    for array).
 
     A head-like surface with LOCAL triangles: vertices along a spiral on a
     ~0.1-radius sphere, faces connecting spiral neighbours across turns, so
@@ -139,7 +139,16 @@ def make_flame_assets(dirpath, seed=0, v=FLAME_V, f=FLAME_F):
             fh.write(
                 f"f {tri[0]+1}/{tri[0]+1} {tri[1]+1}/{tri[1]+1} "
                 f"{tri[2]+1}/{tri[2]+1}\n")
-    return dict(model=pkl_path, obj=obj_path)
+
+    # landmark embedding: drawn last, so every array above is what the
+    # generator gave before it had landmarks
+    lmk = dict(
+        full_lmk_faces_idx=rng.integers(0, f, (1, 70)),
+        full_lmk_bary_coords=rng.dirichlet(np.ones(3), (1, 70)),
+    )
+    lmk_path = os.path.join(dirpath, "landmark_embedding_with_eyes.npy")
+    np.save(lmk_path, np.array(lmk, dtype=object), allow_pickle=True)
+    return dict(model=pkl_path, obj=obj_path, lmk=lmk_path)
 
 
 def make_camera(width=48, height=40, fovx=0.8, dist=4.0,
@@ -242,7 +251,11 @@ def make_bound_bench_model(sh_degree=SH_DEGREE, n_per_face=10, seed=0,
     with tempfile.TemporaryDirectory(prefix="bench_bound_") as tmpdir:
         paths = make_flame_assets(tmpdir, seed=seed)
         head = FlameHead(300, 100, flame_model_path=paths["model"],
-                         flame_template_mesh_path=paths["obj"], device=dev)
+                         flame_template_mesh_path=paths["obj"], device=dev,
+                         flame_lmk_embedding_path=paths["lmk"],
+                         # no region pickle: the head is the same wherever
+                         # $FLAME_ASSET_DIR points
+                         flame_parts_path=os.path.join(tmpdir, "none.pkl"))
     model = FlameGaussianModel(sh_degree, head)
 
     rng = np.random.default_rng(seed)

@@ -1,11 +1,10 @@
 """FLAME 2023 parametric head model (port of
-`gaussianavatars_tpu/models/flame.py`; reference flame_model/flame.py:77-558).
+`gaussianavatars_tpu/models/flame.py`; reference flame_model/flame.py:77-924).
 
-Asset preprocessing (pickle loading, basis slicing, the procedural teeth)
-runs once in numpy at init; `forward` is torch on the module's device.
-The head is built as the JAX package builds it with `include_mask=False`:
-region masks, the mesh laplacian and landmarks are not part of the serving
-path and are not ported yet.
+Asset preprocessing (pickle loading, basis slicing, the procedural teeth,
+the region masks and the mesh laplacian's edge list) runs once in numpy at
+init; `forward` and `laplacian_smooth` are torch on the module's device.
+`FlameMask` (the region tables) stays in numpy, as in the JAX package.
 
 The teeth augmentation reproduces the reference's construction (vertex
 groups, shapedirs and LBS-weight assignment, the six mirror-symmetric
@@ -24,7 +23,12 @@ import torch
 from torch import nn
 
 from gaussianavatars_torch.models import flame_constants as C
-from gaussianavatars_torch.ops.lbs import blend_shapes, lbs
+from gaussianavatars_torch.models import flame_mask_tables as T
+from gaussianavatars_torch.ops.lbs import (
+    blend_shapes,
+    lbs,
+    vertices2landmarks,
+)
 from gaussianavatars_torch.utils.obj import load_obj
 
 
@@ -112,6 +116,120 @@ def _teeth_strip_faces() -> tuple[np.ndarray, np.ndarray]:
 
 
 # ----------------------------------------------------------------------------
+# FlameMask
+# ----------------------------------------------------------------------------
+
+class FlameMask:
+    """Region vertex/face masks (reference flame_model/flame.py:580-924).
+
+    Regions come from three sources: the FLAME_masks.pkl download (broad
+    regions), the hand-curated tables (`flame_mask_tables`: ordered rings,
+    anchor points, halves), and derived unions built at init. Face and UV
+    masks are recomputed from the vertex masks whenever the topology
+    changes (the teeth augmentation).
+    """
+
+    def __init__(self, faces, faces_t=None, num_verts=C.NUM_FLAME_VERTS,
+                 flame_parts_path: Optional[str] = None,
+                 face_clusters=()):
+        self.num_verts = num_verts
+        self.face_clusters = tuple(face_clusters)
+        self.v: dict[str, np.ndarray] = {}
+
+        if flame_parts_path and os.path.exists(flame_parts_path):
+            parts = load_flame_pickle(flame_parts_path)
+            for k, mask in parts.items():
+                self.v[k] = np.asarray(mask, np.int64)
+
+        # the hand-curated tables (reference flame.py:643-814); the teeth
+        # halves are appended by the teeth augmentation
+        for name, vals in T.ALL_TABLES.items():
+            if name in ("left_half_teeth", "right_half_teeth"):
+                continue
+            self.v[name] = vals.copy()
+        self.v["lip_inside_ring"] = np.concatenate(
+            [C.LIP_INSIDE_RING_UPPER, C.LIP_INSIDE_RING_LOWER,
+             C.LIP_INSIDE_RING_EXTRA])
+
+        # derived unions and set-algebra regions (reference flame.py:784-814)
+        def have(*names):
+            return all(nm in self.v for nm in names)
+
+        for name, srcs in [
+            ("ears", ["right_ear", "left_ear"]),
+            ("eyeballs", ["right_eyeball", "left_eyeball"]),
+            ("irises", ["right_iris", "left_iris"]),
+            ("left_eye", ["left_eye_region", "left_eyeball"]),
+            ("right_eye", ["right_eye_region", "right_eyeball"]),
+            ("eyelids", ["left_eyelid", "right_eyelid"]),
+        ]:
+            if have(*srcs):
+                self.v[name] = np.concatenate([self.v[s] for s in srcs])
+        if have("scalp", "face", "neck"):
+            # hair = scalp minus (face | neck)
+            self.v["hair"] = np.setdiff1d(
+                self.v["scalp"], np.union1d(self.v["face"], self.v["neck"]))
+        if have("eyeballs", "irises"):
+            self.v["sclerae"] = np.setdiff1d(self.v["eyeballs"],
+                                             self.v["irises"])
+        skin_except = [r for r in ("eyeballs", "hair", "lips_tight",
+                                   "boundary") if r in self.v]
+        if skin_except:
+            self.v["skin"] = np.setdiff1d(
+                np.arange(self.num_verts),
+                np.unique(np.concatenate([self.v[r] for r in skin_except])))
+
+        self.update(faces, faces_t)
+
+    def update(self, faces, faces_t=None):
+        """Recompute the face masks `f`, the UV masks `vt` and `fid2cid`
+        from the vertex masks for this topology."""
+        self.faces = np.asarray(faces)
+        self.faces_t = None if faces_t is None else np.asarray(faces_t)
+        self.num_faces = len(self.faces)
+
+        self.f: dict[str, np.ndarray] = {}
+        self.vt: dict[str, np.ndarray] = {}
+        for name, vids in self.v.items():
+            hits = np.isin(self.faces, np.unique(vids)).any(axis=1)
+            self.f[name] = np.nonzero(hits)[0].astype(np.int64)
+            if self.faces_t is not None:
+                self.vt[name] = np.unique(self.faces_t[hits])
+
+        # face id -> cluster id (reference flame.py:840-856): 0 background,
+        # 1 unclustered foreground, 2+ face_clusters[i]
+        fid2cid = np.ones(self.num_faces + 1, np.int64)
+        for cid, cluster in enumerate(self.face_clusters):
+            if cluster in self.f:
+                fid2cid[self.f[cluster]] = cid + 2
+        self.fid2cid = fid2cid
+
+    # -- queries (reference flame.py:870-924) ------------------------------
+
+    def register(self, name: str, vids: np.ndarray):
+        self.v[name] = np.asarray(vids, np.int64)
+
+    def get_vid_by_region(self, regions, keep_order=False):
+        if len(regions) == 0:
+            return np.array([], np.int64)
+        vid = np.concatenate([self.v[k] for k in regions])
+        return vid if keep_order else np.unique(vid)
+
+    def get_vid_except_region(self, regions):
+        exclude = self.get_vid_by_region(regions)
+        return np.setdiff1d(np.arange(self.num_verts), exclude)
+
+    def get_fid_by_region(self, regions):
+        if len(regions) == 0:
+            return np.array([], np.int64)
+        return np.unique(np.concatenate([self.f[k] for k in regions]))
+
+    def get_fid_except_region(self, regions):
+        exclude = self.get_fid_by_region(regions)
+        return np.setdiff1d(np.arange(self.num_faces), exclude)
+
+
+# ----------------------------------------------------------------------------
 # FlameHead
 # ----------------------------------------------------------------------------
 
@@ -120,7 +238,11 @@ class FlameHead(nn.Module):
     flame_model/flame.py:77-558) on `device`.
 
     Bases live in buffers: shapedirs [V, 3, S+E], posedirs [(J-1)*9, V*3],
-    v_template [V, 3], j_regressor [J, V], lbs_weights [V, J], faces [F, 3].
+    v_template [V, 3], j_regressor [J, V], lbs_weights [V, J], faces [F, 3],
+    the laplacian's undirected edges [E, 2] and vertex degrees [V], and,
+    when the landmark embedding exists, its faces [L] and barycentric
+    coordinates [L, 3]. `mask` is the `FlameMask` of the final topology
+    (None without `include_mask`).
     """
 
     def __init__(
@@ -130,6 +252,9 @@ class FlameHead(nn.Module):
         flame_model_path: Optional[str] = None,
         flame_template_mesh_path: Optional[str] = None,
         device: str | torch.device = "cuda",
+        flame_lmk_embedding_path: Optional[str] = None,
+        flame_parts_path: Optional[str] = None,
+        include_mask: bool = True,
     ):
         super().__init__()
         self.n_shape_params = shape_params
@@ -152,21 +277,69 @@ class FlameHead(nn.Module):
         self.parents = [int(p) for p in parents]
         lbs_weights = np.asarray(model["weights"], np.float32)
 
-        _, _, faces, _ = load_obj(
+        lmk_path = (flame_lmk_embedding_path
+                    or _default_path("landmark_embedding_with_eyes.npy"))
+        lmk_faces = lmk_bary = None
+        if os.path.exists(lmk_path):
+            lmk = np.load(lmk_path, allow_pickle=True, encoding="latin1")[()]
+            lmk_faces = np.asarray(lmk["full_lmk_faces_idx"],
+                                   np.int64).reshape(-1)
+            lmk_bary = np.asarray(lmk["full_lmk_bary_coords"],
+                                  np.float32).reshape(-1, 3)
+
+        _, verts_uvs, faces, faces_uvs = load_obj(
             flame_template_mesh_path or _default_path("head_template_mesh.obj"))
         faces = faces.astype(np.int64)
         if not np.array_equal(faces, np.asarray(model["f"], np.int64)):
             raise ValueError(
                 "template OBJ topology must match the FLAME model faces")
+        n0, f0 = v_template.shape[0], faces.shape[0]
+        self.mask = None
+        if include_mask:
+            self.mask = FlameMask(
+                faces, faces_uvs, num_verts=n0,
+                flame_parts_path=flame_parts_path
+                or _default_path("FLAME_masks.pkl"))
 
-        v_template, shapedirs, posedirs, j_regressor, lbs_weights, faces = (
-            _add_teeth(v_template, shapedirs, posedirs, j_regressor,
-                       lbs_weights, faces, shape_params, len(parents)))
+        (v_template, shapedirs, posedirs, j_regressor, lbs_weights, faces,
+         (vid_teeth_upper, vid_teeth_lower)) = _add_teeth(
+            v_template, shapedirs, posedirs, j_regressor, lbs_weights, faces,
+            shape_params, len(parents))
+
+        if self.mask is not None:
+            textures_idx = None
+            if faces_uvs is not None:
+                # the teeth's UV faces index a grid appended to the atlas
+                textures_idx = np.concatenate(
+                    [faces_uvs, faces[f0:] - n0 + verts_uvs.shape[0]])
+            self.mask.num_verts = v_template.shape[0]
+            self.mask.register("teeth_upper", vid_teeth_upper)
+            self.mask.register("teeth_lower", vid_teeth_lower)
+            self.mask.register("teeth", np.concatenate(
+                [vid_teeth_upper, vid_teeth_lower]))
+            # the teeth vertices extend the half-face splits (reference
+            # flame.py:255-269)
+            for half, ext in (("left_half", T.LEFT_HALF_TEETH),
+                              ("right_half", T.RIGHT_HALF_TEETH)):
+                if half in self.mask.v:
+                    self.mask.v[half] = np.concatenate(
+                        [self.mask.v[half], ext])
+            self.mask.update(faces, textures_idx)
+
+        # uniform graph laplacian of the final mesh (the dynamic-offset
+        # regularizer, reference flame_gaussian_model.py:161-172)
+        edges = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                                faces[:, [2, 0]]])
+        edges = np.unique(np.sort(edges, axis=1), axis=0)
+        degree = np.zeros(v_template.shape[0], np.float32)
+        np.add.at(degree, edges[:, 0], 1.0)
+        np.add.at(degree, edges[:, 1], 1.0)
 
         def buf(name, a, dtype=torch.float32):
             self.register_buffer(
-                name, torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                      device=device), persistent=False)
+                name, None if a is None else torch.as_tensor(
+                    np.ascontiguousarray(a), dtype=dtype, device=device),
+                persistent=False)
 
         buf("v_template", v_template)
         buf("shapedirs", shapedirs)
@@ -174,6 +347,10 @@ class FlameHead(nn.Module):
         buf("j_regressor", j_regressor)
         buf("lbs_weights", lbs_weights)
         buf("faces", faces, torch.int64)
+        buf("laplacian_edges", edges, torch.int64)
+        buf("laplacian_degree", degree)
+        buf("full_lmk_faces_idx", lmk_faces, torch.int64)
+        buf("full_lmk_bary_coords", lmk_bary)
 
     @property
     def num_verts(self) -> int:
@@ -182,6 +359,14 @@ class FlameHead(nn.Module):
     @property
     def num_faces(self) -> int:
         return self.faces.shape[0]
+
+    def laplacian_smooth(self, verts: torch.Tensor) -> torch.Tensor:
+        """L @ verts with the uniform L = D - A; verts [B, V, 3]."""
+        e = self.laplacian_edges
+        neigh = torch.zeros_like(verts)
+        neigh = neigh.index_add(1, e[:, 0], verts[:, e[:, 1]])
+        neigh = neigh.index_add(1, e[:, 1], verts[:, e[:, 0]])
+        return self.laplacian_degree[None, :, None] * verts - neigh
 
     def forward(
         self,
@@ -192,12 +377,19 @@ class FlameHead(nn.Module):
         jaw,
         eyes,
         translation,
+        zero_centered_at_root_node: bool = False,
+        return_landmarks: bool = True,
+        return_verts_cano: bool = False,
         static_offset=None,
         dynamic_offset=None,
     ):
         """FLAME forward (reference flame_model/flame.py:485-558).
 
-        Tensor args carry a leading batch dim B. Returns verts [B, V, 3].
+        Tensor args carry a leading batch dim B. Returns verts [B, V, 3],
+        followed, in this order and only when asked for, by the canonical
+        verts (the shaped template with the offsets, before skinning) and
+        the landmarks [B, L, 3] (when the head has an embedding); a single
+        tensor when nothing follows it.
         """
         betas = torch.cat([shape, expr], dim=1)
         full_pose = torch.cat([rotation, neck, jaw, eyes], dim=1)
@@ -210,9 +402,21 @@ class FlameHead(nn.Module):
             # the evidently intended semantics, and so does the port
             v_shaped = v_shaped + dynamic_offset
 
-        vertices, _, _ = lbs(full_pose, v_shaped, self.posedirs,
-                             self.j_regressor, self.parents, self.lbs_weights)
-        return vertices + translation[:, None, :]
+        vertices, joints, _ = lbs(full_pose, v_shaped, self.posedirs,
+                                  self.j_regressor, self.parents,
+                                  self.lbs_weights)
+        if zero_centered_at_root_node:
+            vertices = vertices - joints[:, [0]]
+        vertices = vertices + translation[:, None, :]
+
+        ret = [vertices]
+        if return_verts_cano:
+            ret.append(v_shaped)
+        if return_landmarks and self.full_lmk_faces_idx is not None:
+            ret.append(vertices2landmarks(vertices, self.faces,
+                                          self.full_lmk_faces_idx,
+                                          self.full_lmk_bary_coords))
+        return ret if len(ret) > 1 else ret[0]
 
 
 def _add_teeth(v_template, shapedirs, posedirs, j_regressor, lbs_weights,
@@ -221,7 +425,8 @@ def _add_teeth(v_template, shapedirs, posedirs, j_regressor, lbs_weights,
 
     Reproduces reference flame_model/flame.py:186-483: vertex groups,
     shapedirs copied from the lip rings, zero posedirs / joint regressor,
-    manual LBS weights, strip faces. Returns the augmented arrays.
+    manual LBS weights, strip faces. Returns the augmented arrays and the
+    (upper, lower) teeth vertex ids.
     """
     vid_up = C.LIP_OUTSIDE_RING_UPPER
     vid_low = C.LIP_OUTSIDE_RING_LOWER
@@ -293,4 +498,5 @@ def _add_teeth(v_template, shapedirs, posedirs, j_regressor, lbs_weights,
 
     f_upper, f_lower = _teeth_strip_faces()
     faces = np.concatenate([faces, f_upper + n0, f_lower + n0], axis=0)
-    return v_template, shapedirs, posedirs, j_regressor, w, faces
+    return (v_template, shapedirs, posedirs, j_regressor, w, faces,
+            (vid_teeth_upper, vid_teeth_lower))

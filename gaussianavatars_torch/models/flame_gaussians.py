@@ -1,7 +1,7 @@
 """Gaussian splats rigged to a FLAME head (port of
 `gaussianavatars_tpu/models/flame_gaussians.py`; reference
-scene/flame_gaussian_model.py:21-269). `motion_path` and `disable_fid` of
-`load_ply` (the offline tools' reenactment options) are not ported yet."""
+scene/flame_gaussian_model.py:21-269): the per-timestep mesh driving, the
+FLAME regularizers and the PLY / motion IO."""
 
 from __future__ import annotations
 
@@ -91,15 +91,20 @@ class FlameGaussianModel(GaussianModel):
     def from_assets(cls, sh_degree: int, asset_dir: Optional[str] = None,
                     device: str | torch.device = "cuda",
                     **kwargs) -> "FlameGaussianModel":
-        """The model on a FLAME head read from `asset_dir` (`flame2023.pkl`
-        and `head_template_mesh.obj`; default: $FLAME_ASSET_DIR, else
-        flame_model/assets/flame), 300 shape and 100 expression dims."""
+        """The model on a FLAME head read from `asset_dir` (`flame2023.pkl`,
+        `head_template_mesh.obj` and, where they exist,
+        `landmark_embedding_with_eyes.npy` and `FLAME_masks.pkl`; default:
+        $FLAME_ASSET_DIR, else flame_model/assets/flame), 300 shape and
+        100 expression dims."""
         paths = {}
         if asset_dir is not None:
             paths = dict(
                 flame_model_path=os.path.join(asset_dir, "flame2023.pkl"),
                 flame_template_mesh_path=os.path.join(
-                    asset_dir, "head_template_mesh.obj"))
+                    asset_dir, "head_template_mesh.obj"),
+                flame_lmk_embedding_path=os.path.join(
+                    asset_dir, "landmark_embedding_with_eyes.npy"),
+                flame_parts_path=os.path.join(asset_dir, "FLAME_masks.pkl"))
         return cls(sh_degree, FlameHead(300, 100, device=device, **paths),
                    **kwargs)
 
@@ -165,8 +170,10 @@ class FlameGaussianModel(GaussianModel):
         if self.flame_param is not None:
             self.flame_param.update(trainable)
 
-    def verts_at(self, flame_param: dict, timestep: int):
-        """FLAME forward at one timestep: verts [1, V, 3]."""
+    def verts_at(self, flame_param: dict, timestep: int,
+                 return_verts_cano: bool = False):
+        """FLAME forward at one timestep: verts [1, V, 3], or (verts,
+        canonical verts [1, V, 3]) with `return_verts_cano`."""
         p = flame_param
         return self.flame_model(
             p["shape"][None],
@@ -176,6 +183,8 @@ class FlameGaussianModel(GaussianModel):
             p["jaw_pose"][timestep][None],
             p["eyes_pose"][timestep][None],
             p["translation"][timestep][None],
+            return_landmarks=False,
+            return_verts_cano=return_verts_cano,
             static_offset=p["static_offset"][None],
             dynamic_offset=p["dynamic_offset"][timestep][None],
         )
@@ -184,6 +193,45 @@ class FlameGaussianModel(GaussianModel):
         """Frames for the binding chain at one timestep."""
         verts = self.verts_at(flame_param, timestep)
         return face_frames_from_verts(verts[0], self.flame_model.faces)
+
+    @torch.no_grad()
+    def select_mesh_by_timestep(self, timestep: int, original: bool = False):
+        """The reference's host API for viewers and renderers: drive the
+        mesh at `timestep` (with the dataset's original FLAME parameters if
+        `original`), keep `verts`, `verts_cano` and `frames` on the model
+        and return the frames."""
+        self.timestep = timestep
+        param = self.flame_param
+        if original and self.flame_param_orig is not None:
+            param = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in self.flame_param_orig.items()}
+        self.verts, self.verts_cano = self.verts_at(param, timestep,
+                                                    return_verts_cano=True)
+        self.frames = face_frames_from_verts(self.verts[0],
+                                             self.flame_model.faces)
+        return self.frames
+
+    # ------------------------------------------------------------------
+    # Regularizers (reference flame_gaussian_model.py:156-172)
+    # ------------------------------------------------------------------
+
+    def compute_dynamic_offset_loss(self, flame_param: dict, timestep: int):
+        """Mean norm of the timestep's dynamic offset."""
+        off = flame_param["dynamic_offset"][timestep]
+        return torch.linalg.norm(off, dim=-1).mean()
+
+    def compute_laplacian_loss(self, flame_param: dict, timestep: int,
+                               verts_cano: torch.Tensor):
+        """Mean squared change the timestep's dynamic offset makes to the
+        laplacian of the canonical mesh. Only the offset carries a
+        gradient: the mesh without it and its laplacian are constants."""
+        offset = flame_param["dynamic_offset"][timestep][None]
+        verts_wo = (verts_cano - offset).detach()
+        verts_w = verts_wo + offset
+        lap_wo = self.flame_model.laplacian_smooth(verts_wo).detach()
+        lap_w = self.flame_model.laplacian_smooth(verts_w)
+        diff = (lap_wo - lap_w) ** 2
+        return diff.sum(dim=-1, keepdim=True).mean()
 
     # ------------------------------------------------------------------
     # IO (reference flame_gaussian_model.py:219-269)
@@ -197,15 +245,44 @@ class FlameGaussianModel(GaussianModel):
                      **{k: v.detach().cpu().numpy()
                         for k, v in self.flame_param.items()})
 
-    def load_ply(self, path: str, has_target: bool = False):
+    def load_ply(self, path: str, has_target: bool = False,
+                 motion_path: Optional[str] = None,
+                 disable_fid: Optional[np.ndarray] = None):
         """The PLY, and, unless the scene drives a target's motion
-        (`has_target`), the `flame_param.npz` beside it."""
+        (`has_target`), the `flame_param.npz` beside it.
+
+        `motion_path`: a FLAME sequence (`.npz`, e.g. another subject's
+        tracked motion) whose float32 poses, expressions, translation and
+        dynamic offsets replace the model's; shape and static offset stay.
+        `disable_fid`: face ids whose Gaussians are dropped.
+        """
         super().load_ply(path)
+        dev = self.device
         npz_path = str(Path(path).parent / "flame_param.npz")
         if not has_target and os.path.exists(npz_path):
             with np.load(npz_path) as data:
                 self.flame_param = {
-                    k: torch.as_tensor(np.asarray(v, np.float32),
-                                       device=self.device)
+                    k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
                     for k, v in data.items()}
             self.num_timesteps = int(self.flame_param["expr"].shape[0])
+
+        if motion_path is not None:
+            with np.load(motion_path) as data:
+                motion = {k: torch.as_tensor(v, device=dev)
+                          for k, v in data.items() if v.dtype == np.float32}
+            self.flame_param = {
+                "shape": self.flame_param["shape"],
+                "static_offset": self.flame_param["static_offset"],
+                **{k: motion[k] for k in (
+                    "translation", "rotation", "neck_pose", "jaw_pose",
+                    "eyes_pose", "expr", "dynamic_offset")}}
+            self.num_timesteps = int(self.flame_param["expr"].shape[0])
+
+        if disable_fid is not None and len(disable_fid) > 0:
+            keep = ~torch.isin(self.binding, torch.as_tensor(
+                np.asarray(disable_fid, np.int64), device=dev))
+            self.params = GaussianParams(*[p[keep] for p in self.params])
+            self.binding = self.binding[keep]
+            self.binding_counter = torch.bincount(
+                self.binding, minlength=self.flame_model.num_faces)
+            self.reset_stats()

@@ -76,11 +76,12 @@ class GaussianModel:
 
     `active_sh_degree` starts at `sh_degree`, what a served model renders
     with; `create_from_pcd` starts training at 0 and `load_ply` sets the
-    maximum, as the JAX package does.
+    maximum, as the JAX package does. Without `params` the model lives on
+    `device` (default cuda, as every entry point of the port).
     """
 
     def __init__(self, sh_degree: int, params: Optional[GaussianParams] = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.max_sh_degree = sh_degree
         self.active_sh_degree = sh_degree
         self.params = params

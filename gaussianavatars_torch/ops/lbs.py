@@ -108,3 +108,14 @@ def lbs(pose, v_shaped, posedirs, j_regressor, parents, lbs_weights):
                     dim=-1)
     verts = torch.einsum("bvmn,bvn->bvm", T, v_h)[..., :3]
     return verts, posed_joints, rel_tf[:, 1]
+
+
+def vertices2landmarks(vertices, faces, lmk_faces_idx, lmk_bary_coords):
+    """Barycentric landmarks (reference flame_model/lbs.py:60-98).
+
+    vertices [B, V, 3]; faces [F, 3]; lmk_faces_idx [L]; bary [L, 3].
+    Returns [B, L, 3].
+    """
+    lmk_faces = faces[lmk_faces_idx]              # [L, 3]
+    lmk_verts = vertices[:, lmk_faces]            # [B, L, 3, 3]
+    return torch.einsum("blfi,lf->bli", lmk_verts, lmk_bary_coords)

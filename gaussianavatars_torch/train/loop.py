@@ -25,6 +25,10 @@ from gaussianavatars_torch.config import (
     save_config,
 )
 from gaussianavatars_torch.device import resolve_device
+from gaussianavatars_torch.models.flame_gaussians import (
+    FlameGaussianModel,
+    face_frames_from_verts,
+)
 from gaussianavatars_torch.models.gaussians import (
     AdamState,
     GaussianModel,
@@ -183,11 +187,6 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
     "backward", "adam" and "stats" as each phase is issued.
     """
     _check_pipeline(pipe_cfg)
-    for name in ("lambda_dynamic_offset", "lambda_laplacian",
-                 "lambda_dynamic_offset_std"):
-        if getattr(opt_cfg, name) != 0.0:
-            raise NotImplementedError(
-                f"{name} needs the FLAME masks and laplacian, not ported yet")
     bound = model.binding is not None
     del num_timesteps       # timesteps index the FLAME tensors directly
 
@@ -205,8 +204,11 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
         with torch.enable_grad():
             frames = None
             if bound:
-                frames = model.face_frames_at({**flame_fixed, **flame_tr},
-                                              timestep)
+                flame_full = {**flame_fixed, **flame_tr}
+                verts, verts_cano = model.verts_at(flame_full, timestep,
+                                                   return_verts_cano=True)
+                frames = face_frames_from_verts(verts[0],
+                                                model.flame_model.faces)
                 if mark:
                     mark("flame_frames")
             means3d, scales, quats, opac, shs, face_scale = \
@@ -220,6 +222,10 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
             total, losses = compute_losses(
                 out.image, gt_image, out.visibility, params.xyz,
                 params.scaling, face_scale, opt_cfg, bound)
+            if bound:
+                total = _flame_regularizers(model, opt_cfg, flame_full,
+                                            timestep, verts_cano, total,
+                                            losses)
             losses["total"] = total
             if mark:
                 mark("forward")
@@ -260,6 +266,29 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
         return new_state, losses, out.instance_total
 
     return step
+
+
+def _flame_regularizers(model, opt_cfg: OptimizationConfig,
+                        flame_full: dict, timestep: int,
+                        verts_cano: torch.Tensor, total, losses: dict):
+    """Add the weighted FLAME regularizers whose weights are non-zero to
+    `losses` (`dy_off`, `dynamic_offset_std`, `lap`, in that order) and
+    return `total` with them."""
+    if opt_cfg.lambda_dynamic_offset != 0.0:
+        losses["dy_off"] = model.compute_dynamic_offset_loss(
+            flame_full, timestep) * opt_cfg.lambda_dynamic_offset
+        total = total + losses["dy_off"]
+    if opt_cfg.lambda_dynamic_offset_std != 0.0:
+        # the population standard deviation over timesteps (jnp.std)
+        std = flame_full["dynamic_offset"].std(dim=0, correction=0).mean()
+        losses["dynamic_offset_std"] = \
+            std * opt_cfg.lambda_dynamic_offset_std
+        total = total + losses["dynamic_offset_std"]
+    if opt_cfg.lambda_laplacian != 0.0:
+        losses["lap"] = model.compute_laplacian_loss(
+            flame_full, timestep, verts_cano) * opt_cfg.lambda_laplacian
+        total = total + losses["lap"]
+    return total
 
 
 # ----------------------------------------------------------------------------
@@ -331,10 +360,6 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     safe_state(seed)
 
     if model_cfg.bind_to_mesh:
-        from gaussianavatars_torch.models.flame_gaussians import (
-            FlameGaussianModel,
-        )
-
         model = FlameGaussianModel.from_assets(
             model_cfg.sh_degree, device=dev,
             not_finetune_flame_params=model_cfg.not_finetune_flame_params,
@@ -506,15 +531,40 @@ def save_checkpoint(model, state: StepState, iteration: int, path: str):
     np.savez(path, **data)
 
 
+_EVAL_LPIPS: dict = {}    # (weights path, device) -> LPIPS or None
+
+
+def _eval_lpips(device: torch.device):
+    """The evaluation's LPIPS on `device`, built once per weights file
+    (reference train.py:286-296); None, with one warning line, when the
+    weights are not there (they are a user download, like the FLAME
+    pickles)."""
+    from gaussianavatars_torch.metrics_lib.lpips import (
+        LPIPS,
+        default_weights_path,
+        lpips_available,
+    )
+
+    key = (default_weights_path(), str(device))
+    if key not in _EVAL_LPIPS:
+        if lpips_available(key[0]):
+            _EVAL_LPIPS[key] = LPIPS(key[0], device=device)
+        else:
+            print(f"[warn] no LPIPS weights at {key[0]}; evaluating without "
+                  "LPIPS")
+            _EVAL_LPIPS[key] = None
+    return _EVAL_LPIPS[key]
+
+
 @torch.no_grad()
 def evaluate_splits(model, scene, model_cfg: ModelConfig,
                     pipe_cfg: PipelineConfig, state: StepState,
                     flame_fixed: dict) -> dict:
-    """Mean L1, PSNR and SSIM of the val (novel view) and test
-    (self-reenactment) splits, rendered with the state's parameters against
-    the clamped ground truth (reference train.py:256-314). LPIPS is not
-    ported yet. Returns {split: {"l1_loss", "psnr", "ssim"}} for the splits
-    that have cameras."""
+    """Mean L1, PSNR, SSIM and, when the LPIPS weights exist, LPIPS of the
+    val (novel view) and test (self-reenactment) splits, rendered with the
+    state's parameters against the clamped ground truth (reference
+    train.py:256-314). Returns {split: {"l1_loss", "psnr", "ssim"[,
+    "lpips"]}} for the splits that have cameras."""
     from gaussianavatars_torch.data.loader import iterate_once
 
     bound = model.binding is not None
@@ -525,8 +575,9 @@ def evaluate_splits(model, scene, model_cfg: ModelConfig,
                            ("test", scene.get_test_cameras())):
         if not cameras:
             continue
+        lpips_fn = _eval_lpips(dev)
         render_fns = {}
-        l1s, psnrs, ssims = [], [], []
+        l1s, psnrs, ssims, lpipses = [], [], [], []
         for cam, gt in iterate_once(cameras, model_cfg.resolution):
             w, h = cam.resolution(model_cfg.resolution)
             if (w, h) not in render_fns:
@@ -541,9 +592,13 @@ def evaluate_splits(model, scene, model_cfg: ModelConfig,
             l1s.append(l1_loss(img, gt_t))
             psnrs.append(psnr(img, gt_t)[0])
             ssims.append(ssim(img, gt_t))
+            if lpips_fn is not None:
+                lpipses.append(lpips_fn(img, gt_t)[0])
         results[split] = {
             "l1_loss": float(torch.stack(l1s).mean()),
             "psnr": float(torch.stack(psnrs).mean()),
             "ssim": float(torch.stack(ssims).mean()),
         }
+        if lpipses:
+            results[split]["lpips"] = float(torch.stack(lpipses).mean())
     return results

@@ -25,6 +25,10 @@ from gaussianavatars_tpu.train.loop import (
 )
 from gaussianavatars_torch import benchmark as tbench
 from gaussianavatars_torch import fps_benchmark_demo, kernels
+from gaussianavatars_torch import metrics as metrics_cli
+from gaussianavatars_torch.metrics_lib.lpips import LPIPS
+from gaussianavatars_torch.models.gaussians import GaussianModel
+from gaussianavatars_torch.render import __main__ as render_cli
 from gaussianavatars_torch.config import PipelineConfig
 from gaussianavatars_torch.convert import from_jax_arrays
 from gaussianavatars_torch.device import resolve_device
@@ -106,7 +110,7 @@ def test_entry_point_on_cpu():
     assert len(fps) == 1 and fps[0] > 0
 
 
-def test_entry_points_raise_without_gpu():
+def test_entry_points_raise_without_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError):
@@ -114,8 +118,20 @@ def test_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError):
         tbench.make_bench_scene(n=10)
     with pytest.raises(RuntimeError):
+        render_cli.main(["-m", str(tmp_path)])
+    with pytest.raises(RuntimeError):
+        metrics_cli.main(["-m", str(tmp_path)])
+    with pytest.raises(RuntimeError):
+        LPIPS(str(tmp_path / "weights.npz"))
+    with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_models_default_to_the_gpu():
+    """A model built without parameters lives on cuda unless asked."""
+    assert GaussianModel(3).device == torch.device("cuda")
+    assert GaussianModel(3, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_build_raises_without_nvcc():
@@ -130,6 +146,12 @@ def test_kernel_build_raises_without_nvcc():
 
 FORBIDDEN = ("jax", "jaxlib", "gaussianavatars_tpu", "tests", "PIL", "tqdm",
              "tensorboardX")
+# the offline tools' modules, which the GPU host must import as well
+NEW_MODULES = ("gaussianavatars_torch.metrics",
+               "gaussianavatars_torch.metrics_lib.lpips",
+               "gaussianavatars_torch.models.flame_mask_tables",
+               "gaussianavatars_torch.render.__main__",
+               "gaussianavatars_torch.render.mesh_renderer")
 
 
 def test_port_imports_no_jax():
@@ -147,7 +169,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "bad = [m for m in set(sys.modules) - before\n"
         f"       if m.split('.')[0] in {FORBIDDEN!r}]\n"
-        "assert len(mods) >= 25, mods\n"
+        "assert len(mods) >= 30, mods\n"
+        f"assert not set({NEW_MODULES!r}) - set(mods), mods\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -174,7 +197,9 @@ def test_port_sources_import_no_jax():
     sources = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "gaussianavatars_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    assert len(sources) >= 30
+    assert len(sources) >= 35
+    for name in NEW_MODULES:
+        assert os.path.join(REPO, *name.split(".")) + ".py" in sources, name
     for path in sources:
         for name in _imported_names(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
