@@ -62,7 +62,29 @@ Phases (any failure exits non-zero before the result line):
      1e-6); 20 train steps of the bench avatar with all three FLAME
      regularizers and a random dynamic offset beside 20 plain steps. The
      renders run in process, where K1 counts one launch per image and K1
-     and K2 one each per step.
+     and K2 one each per step;
+ 10. the quality protocols and the pipeline options (`recovery_phase`,
+     `options_phase`): the bound protocol of
+     `gaussianavatars_torch/examples/bound_avatar_recovery.py` at 448x400
+     (256 ground-truth renders of the painted avatar, white background, SH
+     2) cut in depth to 500 iterations, its val and test PSNR at iteration
+     0 and at the end (both must rise); the unbound protocol of
+     `synthetic_recovery.py` at 400x400 (32 renders of 20,000 SH-3
+     Gaussians, the noisy point-cloud init) cut to 300 iterations (the loss
+     must fall); both with K1 and K2 counted around the run (one K2 per
+     iteration, one K1 per iteration and eval view); the unbound views
+     written again as a COLMAP binary scene and `python -m
+     gaussianavatars_torch.train -s <scene> --iterations 30` in a
+     subprocess, which must start from the scene's points and write its
+     PLY; then on the bench avatar one render and one train step with
+     `convert_SHs_python` and with `compute_cov3D_python` against the
+     default path (image max|d| <= 1e-4; for the covariance, whose
+     rounding moves a few alphas across the blend's thresholds, 1e-4 on
+     all but 1e-4 of the values and 2/255 on every one; gradients per leaf
+     max|d| / max|default| <= 2e-4), beside the image's float32
+     sensitivity (every scale one ulp larger), and one
+     render with `scaling_modifier=2.0`, whose longer stream K1 matches its
+     plain version on (max|d| <= 1e-3).
 The `kernels` line is the last but one, the card's name and power limit
 the line before it. The last line is {"ok": true, "device": {...}}.
 Nothing here imports JAX.
@@ -98,6 +120,25 @@ DENSIFY_STEPS = 20            # phase 8: statistics before densifying 101k
 REG_STEPS = 20                # phase 9: regularized train steps
 REGULARIZERS = dict(lambda_dynamic_offset=1.0, lambda_dynamic_offset_std=1.0,
                     lambda_laplacian=1.0)
+BOUND_ITERATIONS = 500        # phase 10: the bound protocol (of 10,000)
+UNBOUND_ITERATIONS = 300      # phase 10: the unbound protocol (of 2000)
+COLMAP_CLI_ITERATIONS = 30    # phase 10: `train` on the COLMAP copy
+BOUND_SIZE = (448, 400)       # the bound protocol's recorded size
+SYNTH_SIZE = (400, 400)       # the unbound protocol's default size
+SCALING_MODIFIER = 2.0        # phase 10: the viewer's scale control
+# phase 10, an option path's image against the default path's. Colours
+# enter the blend linearly, so precomputed SH colours hold max|d| <=
+# TOL_OPTION_IMAGE everywhere. A precomputed covariance rounds otherwise,
+# and on the 101k avatar some alpha then lands on the other side of a
+# blend threshold (the 1/255 skip, the 0.99 clamp, the early stop): such a
+# flip moves its pixel by up to alpha = 1/255 times a colour difference
+# (colours reach ~2), and the pixels it touches are few. So the
+# covariance path holds TOL_OPTION_IMAGE on all but FLIP_SHARE of the
+# image's values, and FLIP_MAX on every value.
+TOL_OPTION_IMAGE = 1e-4
+FLIP_SHARE = 1e-4
+FLIP_MAX = 2.0 / 255.0
+TOL_OPTION_GRAD = 2e-4
 
 # NVIDIA H100 SXM published peaks (dense): float32 outside the tensor
 # cores, HBM3 bandwidth, and the SFU rate (16 MUFU ops per SM per clock,
@@ -939,6 +980,300 @@ def offline_phase(dev, width, height, work, steps=REG_STEPS):
     return out
 
 
+def recovery_phase(dev, work, bound_iterations=BOUND_ITERATIONS,
+                   unbound_iterations=UNBOUND_ITERATIONS,
+                   cli_iterations=COLMAP_CLI_ITERATIONS,
+                   bound_size=BOUND_SIZE, synth_size=SYNTH_SIZE,
+                   bound_rig=None, synth_views=(28, 4), synth_gaussians=20_000):
+    """Phase 10, the quality protocols of `gaussianavatars_torch/examples`
+    cut in depth, under the directory `work` (see the module docstring).
+    `bound_rig` (timesteps, cameras per ring) and the synthetic protocol's
+    views and Gaussians cut the data for a CPU rehearsal only. Returns the
+    numbers it measured; raises on any failure."""
+    from gaussianavatars_torch.config import (
+        ModelConfig, OptimizationConfig, PipelineConfig,
+    )
+    from gaussianavatars_torch.data.scene import Scene
+    from gaussianavatars_torch.examples import bound_avatar_recovery as bound
+    from gaussianavatars_torch.examples import steady_rate
+    from gaussianavatars_torch.examples import synthetic_recovery as synth
+    from gaussianavatars_torch.models.flame_gaussians import (
+        FlameGaussianModel,
+    )
+    from gaussianavatars_torch.ops import tile_blend
+    from gaussianavatars_torch.train import loop
+    from gaussianavatars_torch.utils.ply import read_ply
+
+    k1, k2 = tile_blend.blend_image_cuda, tile_blend.blend_image_bwd_cuda
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def psnrs(metrics):
+        return {split: round(m["psnr"], 4) for split, m in metrics.items()}
+
+    out = {}
+    # ---- (a) the bound protocol at 448x400 ----------------------------------
+    t0 = time.perf_counter()
+    root = os.path.join(work, "bound")
+    data, assets = os.path.join(root, "data"), os.path.join(root, "assets")
+    rig = {} if bound_rig is None else dict(t_steps=bound_rig[0],
+                                            n_cams=bound_rig[1])
+    bound.write_dataset(data, assets, *bound_size, **rig)
+    os.environ["FLAME_ASSET_DIR"] = assets
+    cfg = ModelConfig(source_path=data, model_path=os.path.join(root, "out"),
+                      bind_to_mesh=True, eval=True, sh_degree=2,
+                      white_background=True, not_finetune_flame_params=True)
+    pipe = PipelineConfig()
+    os.makedirs(cfg.model_path, exist_ok=True)
+    gt_model = FlameGaussianModel.from_assets(cfg.sh_degree, device=dev)
+    scene = Scene(cfg, gt_model)
+    bound.paint_gt_model(gt_model)
+    n_images = bound.render_gt_images(gt_model, scene, cfg, pipe, dev)
+    sync()
+    gt_s = time.perf_counter() - t0
+    n_eval = len(scene.get_val_cameras()) + len(scene.get_test_cameras())
+    # iteration 0: the training's own init, scored on the same splits
+    init = FlameGaussianModel.from_assets(cfg.sh_degree, device=dev,
+                                          not_finetune_flame_params=True)
+    init_scene = Scene(cfg, init)
+    state0 = loop.initial_state(init)
+    first = loop.evaluate_splits(init, init_scene, cfg, pipe, state0, {
+        k: v for k, v in init.flame_param.items() if k not in state0.flame_tr})
+    it = bound_iterations
+    opt = OptimizationConfig(
+        iterations=it, densify_from_iter=400, densify_until_iter=int(0.7 * it),
+        densification_interval=300, opacity_reset_interval=10 * it,
+        position_lr_max_steps=it)
+    sync()
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    model, _, info = loop.training(cfg, opt, pipe, testing_iterations={it},
+                                   device=dev)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"bound": {"blend_fwd": k1.launches, "blend_bwd": k2.launches}}
+    last = info["metrics"][it]
+    print(f"[recovery] bound protocol at {bound_size[0]}x{bound_size[1]}: "
+          f"{n_images} ground-truth renders in {gt_s:.2f} s; {it} iterations "
+          f"in {wall:.2f} s ({1e3 * wall / it:.2f} ms/iteration), "
+          f"{model.num_gaussians} Gaussians; PSNR at iteration 0 "
+          f"{psnrs(first)}, at {it} {psnrs(last)}; launches "
+          f"{launches['bound']}")
+    check(launches["bound"] == {"blend_fwd": it + n_eval, "blend_bwd": it},
+          f"the bound protocol launched {launches['bound']} in {it} "
+          f"iterations and {n_eval} eval views")
+    for split in ("val", "test"):
+        check(last[split]["psnr"] > first[split]["psnr"],
+              f"bound {split} PSNR did not rise: {first[split]['psnr']} -> "
+              f"{last[split]['psnr']}")
+    rate = steady_rate(info["timeline"])
+    out["bound"] = dict(
+        size=list(bound_size), images=n_images, gt_s=round(gt_s, 2),
+        iterations=it, wall_s=round(wall, 2),
+        steady_ms_per_iteration=round(1e3 / rate, 3) if rate else None,
+        n_gaussians=model.num_gaussians, eval_views=n_eval,
+        psnr_first=psnrs(first), psnr_last=psnrs(last),
+        ssim_last={k: round(m["ssim"], 4) for k, m in last.items()})
+
+    # ---- (b) the unbound protocol at 400x400 and its COLMAP copy ------------
+    root = os.path.join(work, "synthetic")
+    data = os.path.join(root, "data")
+    w, h = synth_size
+    n_train, n_test = synth_views
+    t0 = time.perf_counter()
+    gt = synth.make_gt_scene(n=synth_gaussians, device=dev)
+    synth.render_dataset(data, gt, w, h, n_train=n_train, n_test=n_test)
+    xyz, rgb = synth.write_noisy_init(data, gt)
+    sync()
+    gt_s = time.perf_counter() - t0
+    cfg = ModelConfig(source_path=data, model_path=os.path.join(root, "out"),
+                      bind_to_mesh=False, eval=True, sh_degree=3,
+                      white_background=True)
+    it = unbound_iterations
+    opt = OptimizationConfig(
+        iterations=it, densify_from_iter=500,
+        densify_until_iter=int(0.75 * it), densification_interval=300,
+        opacity_reset_interval=10 * it, position_lr_max_steps=it)
+    sync()
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    model, _, info = loop.training(cfg, opt, PipelineConfig(),
+                                   testing_iterations={it}, device=dev)
+    sync()
+    wall = time.perf_counter() - t0
+    launches["unbound"] = {"blend_fwd": k1.launches,
+                           "blend_bwd": k2.launches}
+    hist = info["history"]
+    test = info["metrics"][it]["test"]
+    print(f"[recovery] unbound protocol at {w}x{h}: {n_train + n_test} "
+          f"ground-truth renders of {synth_gaussians} Gaussians in "
+          f"{gt_s:.2f} s; {it} iterations in {wall:.2f} s from "
+          f"{len(xyz)} points, EMA loss {hist[0][1]:.5f} -> {hist[-1][1]:.5f}"
+          f", test PSNR {test['psnr']:.4f}; launches {launches['unbound']}")
+    check(launches["unbound"] == {"blend_fwd": it + n_test, "blend_bwd": it},
+          f"the unbound protocol launched {launches['unbound']}")
+    check(hist[-1][1] < hist[0][1], "the unbound loss did not fall")
+    check(np.isfinite(test["psnr"]), f"unbound test PSNR {test['psnr']}")
+    rate = steady_rate(info["timeline"])
+    out["unbound"] = dict(
+        size=[w, h], images=n_train + n_test, gt_s=round(gt_s, 2),
+        iterations=it, wall_s=round(wall, 2),
+        steady_ms_per_iteration=round(1e3 / rate, 3) if rate else None,
+        points=len(xyz), n_gaussians=model.num_gaussians, eval_views=n_test,
+        ema_loss=[round(hist[0][1], 6), round(hist[-1][1], 6)],
+        test_psnr=round(test["psnr"], 4))
+
+    colmap = synth.write_colmap_scene(data, os.path.join(root, "colmap"), w,
+                                      h, xyz, rgb, n_train=n_train,
+                                      n_test=n_test)
+    model_dir = os.path.join(root, "colmap_out")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "gaussianavatars_torch.train", "-s", colmap,
+         "-m", model_dir, "--iterations", str(cli_iterations), "--device",
+         dev.type], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0,
+          f"train on the COLMAP scene failed: {res.stderr[-2000:]}")
+    ply = read_ply(os.path.join(model_dir, "point_cloud",
+                                f"iteration_{cli_iterations}",
+                                "point_cloud.ply"))
+    start = read_ply(os.path.join(model_dir, "input.ply"))
+    start_xyz = np.stack([start["x"], start["y"], start["z"]], axis=1)
+    check(len(ply["x"]) == len(xyz),
+          f"the COLMAP run ended with {len(ply['x'])} Gaussians, not its "
+          f"{len(xyz)} points")
+    check(np.array_equal(start_xyz, np.asarray(xyz, np.float32)),
+          "the COLMAP run did not start from the scene's points")
+    print(f"[recovery] python -m gaussianavatars_torch.train on the COLMAP "
+          f"copy ({n_train + n_test} views, {len(xyz)} points): "
+          f"{cli_iterations} iterations in {cli_s:.2f} s, PLY of "
+          f"{len(ply['x'])} Gaussians")
+    out["colmap_cli"] = dict(iterations=cli_iterations, s=round(cli_s, 2),
+                             points=len(xyz), n_gaussians=len(ply["x"]))
+    out["launches"] = launches
+    return out
+
+
+def options_phase(dev, model, cam, width, height):
+    """Phase 10, the pipeline options on the bench avatar: one render and
+    one train step with `convert_SHs_python` and with
+    `compute_cov3D_python` against the default path (the image gates
+    TOL_OPTION_IMAGE, FLIP_SHARE and FLIP_MAX above; gradients per leaf
+    max|d| / max|default| <= TOL_OPTION_GRAD), beside the image's float32 sensitivity (the default
+    path with every scale one ulp larger), and one render with
+    `scaling_modifier`. Returns the numbers and the (stream, ranges, args)
+    of the scaled render for the K1 comparison; raises on any failure."""
+    from gaussianavatars_torch.benchmark import (
+        blend_inputs, bound_bench_scene,
+    )
+    from gaussianavatars_torch.config import (
+        OptimizationConfig, PipelineConfig,
+    )
+    from gaussianavatars_torch.ops import tile_blend
+    from gaussianavatars_torch.train import loop, optim
+
+    ca = loop.camera_arrays(cam)
+    bg = torch.ones(3, device=dev)
+    gt = torch.as_tensor(np.random.default_rng(5).random(
+        (3, height, width)).astype(np.float32), device=dev)
+    opt_cfg = OptimizationConfig()
+    variants = {"default": {},
+                "convert_SHs_python": dict(convert_SHs_python=True),
+                "compute_cov3D_python": dict(compute_cov3D_python=True)}
+    images, moments = {}, {}
+    for name, opts in variants.items():
+        pipe = PipelineConfig(**opts)
+        render = loop.make_render_fn(model, pipe, width, height,
+                                     model.active_sh_degree)
+        images[name] = render(model.params, model.flame_param, model.binding,
+                              ca, bg, 0).image
+        # a copy of the parameters and zero Adam moments: after one step
+        # the first moment is (1 - B1) times the gradient
+        state = loop.initial_state(model)
+        state = state._replace(
+            params=type(state.params)(*[p.clone() for p in state.params]),
+            flame_tr={k: v.clone() for k, v in state.flame_tr.items()},
+            max_radii2d=state.max_radii2d.clone(),
+            grad_accum=state.grad_accum.clone(), denom=state.denom.clone())
+        state = state._replace(**dict(zip(("mu", "nu", "count"), optim.init(
+            {"gauss": state.params, "flame": state.flame_tr}))))
+        step = loop.make_train_step(model, opt_cfg, pipe, width, height,
+                                    model.active_sh_degree,
+                                    model.num_timesteps)
+        fixed = {k: v for k, v in model.flame_param.items()
+                 if k not in state.flame_tr}
+        state, _, _ = step(state, fixed, model.binding, ca, gt, bg, 0,
+                           loop.lr_pytree(opt_cfg, 1e-3, state.flame_tr, 1.0))
+        moments[name] = dict(zip(
+            list(type(state.params)._fields) + list(state.flame_tr),
+            list(state.mu["gauss"]) + list(state.mu["flame"].values())))
+    render = loop.make_render_fn(model, PipelineConfig(), width, height,
+                                 model.active_sh_degree)
+    images["one ulp larger scales"] = render(
+        model.params, model.flame_param, model.binding, ca, bg, 0,
+        scaling_modifier=1.0 + 2.0 ** -23).image
+
+    def differ(name):
+        d = (images[name] - images["default"]).abs()
+        return float(d.max()), float((d > TOL_OPTION_IMAGE).float().mean())
+
+    err, share = differ("one ulp larger scales")
+    print(f"[options] float32 sensitivity: every scale one ulp larger moves "
+          f"the image by max|d| {err:.3e}, {share:.2e} of its values by "
+          f"more than {TOL_OPTION_IMAGE:.0e}")
+    out = {"ulp_scale_image": dict(max_abs=err, share_above=share)}
+    for name in variants:
+        if name == "default":
+            continue
+        err, share = differ(name)
+        rel = {leaf: float((g - moments["default"][leaf]).abs().max()
+                           / moments["default"][leaf].abs().max().clamp(
+                               min=1e-30))
+               for leaf, g in moments[name].items()}
+        worst = max(rel, key=rel.get)
+        flips = name == "compute_cov3D_python"
+        print(f"[options] {name}: image max|d| {err:.3e}, {share:.2e} of its "
+              f"values above {TOL_OPTION_IMAGE:.0e} (limits "
+              + (f"{FLIP_MAX:.2e}, {FLIP_SHARE:.0e}" if flips else
+                 f"{TOL_OPTION_IMAGE:.0e}, 0")
+              + f"); gradients, worst leaf {worst} {rel[worst]:.3e} (limit "
+              f"{TOL_OPTION_GRAD:.0e})")
+        check(err <= (FLIP_MAX if flips else TOL_OPTION_IMAGE),
+              f"{name}: image max|d| {err}")
+        check(share <= (FLIP_SHARE if flips else 0.0),
+              f"{name}: {share} of the image above {TOL_OPTION_IMAGE}")
+        check(rel[worst] <= TOL_OPTION_GRAD,
+              f"{name}: gradient of {worst} off by {rel[worst]}")
+        out[name] = dict(image_max_abs=err, image_share_above=share,
+                         grad_max_rel=rel[worst], grad_worst_leaf=worst)
+
+    k1 = tile_blend.blend_image_cuda
+    k1.launches = 0
+    scaled = render(model.params, model.flame_param, model.binding, ca, bg, 0,
+                    scaling_modifier=SCALING_MODIFIER)
+    check(k1.launches == 1, f"the scaled render launched K1 {k1.launches}")
+    plain = render(model.params, model.flame_param, model.binding, ca, bg, 0)
+    scene = bound_bench_scene(model, 0)
+    stream = blend_inputs(dict(scene, scales=scene["scales"]
+                               * SCALING_MODIFIER), cam, 32)
+    check(stream[0].shape[0] == scaled.instance_total,
+          f"the scaled stream has {stream[0].shape[0]} slots, the render "
+          f"{scaled.instance_total}")
+    check(scaled.instance_total > plain.instance_total,
+          "scaling_modifier did not lengthen the stream")
+    print(f"[options] scaling_modifier {SCALING_MODIFIER}: "
+          f"{scaled.instance_total} instances against "
+          f"{plain.instance_total}")
+    out["scaling_modifier"] = dict(value=SCALING_MODIFIER,
+                                   instances=scaled.instance_total,
+                                   default_instances=plain.instance_total)
+    return out, stream
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1320,6 +1655,16 @@ def main() -> int:
         offline_line = offline_phase(dev, WIDTH, HEIGHT, workdir)
         print(json.dumps(dict(what="offline", **offline_line)))
         lap("offline")
+        # ---- 10. the quality protocols, COLMAP and the pipeline options -----
+        recovery_line = recovery_phase(dev, workdir)
+        options_line, (s_inst, s_ranges, s_args) = options_phase(
+            dev, model, cam, WIDTH, HEIGHT)
+        errs.append(compare(f"bench stream, scaling_modifier "
+                            f"{SCALING_MODIFIER}", s_inst, s_ranges, s_args,
+                            TOL_BENCH))
+        print(json.dumps(dict(what="recovery", **recovery_line,
+                              options=options_line)))
+        lap("recovery")
     finally:
         if saved_env is None:
             os.environ.pop("FLAME_ASSET_DIR", None)
@@ -1369,6 +1714,13 @@ def main() -> int:
                           "reenact": offline_line["reenact"]["images"],
                           "mesh": offline_line["mesh"]["images"],
                           "plain": REG_STEPS, "regularized": REG_STEPS},
+        "recovery_launches": {k: v["blend_fwd"] for k, v in
+                              recovery_line["launches"].items()},
+        "recovery_calls": {
+            "bound_iterations": BOUND_ITERATIONS,
+            "bound_eval_views": recovery_line["bound"]["eval_views"],
+            "unbound_iterations": UNBOUND_ITERATIONS,
+            "unbound_eval_views": recovery_line["unbound"]["eval_views"]},
         "max_abs_err": max(errs),
         "pixel_evaluations": walked["blend_fwd"]["pixel_evaluations"],
         "ms": k1_ms,
@@ -1386,6 +1738,8 @@ def main() -> int:
         "loop_iterations": LOOP_ITERATIONS,
         "offline_launches": {k: v["blend_bwd"] for k, v in
                              offline_line["launches"].items()},
+        "recovery_launches": {k: v["blend_bwd"] for k, v in
+                              recovery_line["launches"].items()},
         "max_abs_err": max(e[0] for e in bwd_errs),
         "max_column_rel_err": max(e[1] for e in bwd_errs),
         "pixel_evaluations": walked["blend_bwd"]["pixel_evaluations"],

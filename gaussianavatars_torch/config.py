@@ -82,13 +82,24 @@ class ModelConfig:
 
 @dataclass
 class PipelineConfig:
-    """Pipeline knobs of the render and the train step.
+    """Pipeline knobs of the render and the train step (reference
+    arguments/__init__.py:69-74, and the port's own two).
 
+    convert_SHs_python: evaluate the SH colours outside the rasterizer
+      (`ops/sh.py::eval_sh`) and hand them in as `colors_precomp`.
+    compute_cov3D_python: build the 3D covariances outside the rasterizer
+      (`ops/covariance.py::build_covariance_3d`) and hand them in as
+      `cov3d_precomp`.
+    debug: `training` stops at a non-finite loss after writing the state
+      to `snapshot_fw_<iteration>.npz` (set from `--debug_from` on).
     tile_size: square pixel tile of the blend (16 or 32).
     binning: instance-stream builder; "dense" (the exact ellipse-culled
       duplicated-key sort of `ops/binning_dense.py`) is the only one ported.
     """
 
+    convert_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    debug: bool = False
     tile_size: int = 32
     binning: str = "dense"
 

@@ -17,7 +17,6 @@ import threading
 from typing import Iterator, Optional
 
 import numpy as np
-import torch
 
 from gaussianavatars_torch.data.cameras import Camera
 from gaussianavatars_torch.utils.png import read_png
@@ -29,16 +28,79 @@ _CACHE_BUDGET = int(float(os.environ.get("GA_IMAGE_CACHE_GB", "4"))
                     * (1 << 30))
 
 
-def _resize(arr: np.ndarray, width: int, height: int) -> np.ndarray:
-    """[H, W, C] float32 to [height, width, C]: bilinear with antialiasing
-    (`torch.nn.functional.interpolate`). Not PIL's resampler, which the
-    JAX package uses: resized images differ from its by up to a few
-    levels."""
-    t = torch.from_numpy(np.ascontiguousarray(arr.transpose(2, 0, 1)))[None]
-    out = torch.nn.functional.interpolate(t, size=(height, width),
-                                          mode="bilinear", antialias=True,
-                                          align_corners=False)
-    return out[0].clamp_(0.0, 1.0).permute(1, 2, 0).numpy()
+_PRECISION_BITS = 22      # Pillow's fixed point for 8-bit resampling
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic filter (a = -0.5, support 2)."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0,
+                    np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * a,
+                             0.0))
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit bicubic resampler along `axis` of a uint8
+    image: the filter widened by the downscale factor, each output's
+    weights normalised and rounded to 22-bit fixed point, the sum rounded
+    half up and clipped to 0..255."""
+    in_size = img.shape[axis]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # Pillow's C casts truncate toward zero, as astype does; a negative
+    # lower bound is clamped to 0 either way
+    lo = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    hi = np.minimum((center + support + 0.5).astype(np.int64), in_size)
+    taps = np.arange(ksize)
+    live = taps[None, :] < (hi - lo)[:, None]
+    w = _bicubic((lo[:, None] + taps[None, :] - center[:, None] + 0.5)
+                 / filterscale) * live
+    ww = w.sum(axis=1, keepdims=True)
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    one = float(1 << _PRECISION_BITS)
+    k = np.where(w < 0, -0.5 + w * one, 0.5 + w * one).astype(np.int64)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
+                  np.int64)
+    idx = np.minimum(lo[:, None] + taps[None, :], in_size - 1)
+    extra = (1,) * (src.ndim - 1)
+    for t in range(ksize):
+        acc += src[idx[:, t]] * k[:, t].reshape((out_size,) + extra)
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def _resize(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 [H, W, C] to [height, width, C] as PIL's `Image.resize((width,
+    height))` does, which the JAX loader calls (bicubic by default): a
+    horizontal pass and then a vertical one, each rounded to uint8, a pass
+    skipped when its size does not change. RGBA is premultiplied by alpha
+    first and divided by it after (Pillow's RGBA -> RGBa -> RGBA, in
+    integers), so the composite sees what the JAX loader's does."""
+    if img.shape[:2] == (height, width):
+        return img
+    rgba = img.shape[-1] == 4
+    if rgba:
+        alpha = img[..., 3:4].astype(np.int64)
+        tmp = img[..., :3].astype(np.int64) * alpha + 128
+        img = np.concatenate(
+            [(((tmp >> 8) + tmp) >> 8).astype(np.uint8), img[..., 3:4]], -1)
+    if img.shape[1] != width:
+        img = _resample_axis(img, width, axis=1)
+    if img.shape[0] != height:
+        img = _resample_axis(img, height, axis=0)
+    if rgba:
+        alpha = img[..., 3:4].astype(np.int64)
+        rgb = img[..., :3].astype(np.int64)
+        keep = (alpha == 0) | (alpha == 255)
+        div = np.clip(255 * rgb // np.maximum(alpha, 1), 0, 255)
+        img = np.concatenate([np.where(keep, rgb, div).astype(np.uint8),
+                              img[..., 3:4]], -1)
+    return img
 
 
 def load_camera_image(cam: Camera, resolution_arg: int = -1,
@@ -59,11 +121,12 @@ def load_camera_image(cam: Camera, resolution_arg: int = -1,
     if hit is not None:
         return hit
 
-    arr = read_png(cam.image_path).astype(np.float32) / 255.0
-    if arr.ndim == 2:
-        arr = arr[..., None].repeat(3, axis=-1)
-    if arr.shape[:2] != (h, w):
-        arr = _resize(arr, w, h)
+    raw = read_png(cam.image_path)
+    if raw.shape[:2] != (h, w):
+        raw = _resize(raw if raw.ndim == 3 else raw[..., None], w, h)
+    arr = raw.astype(np.float32) / 255.0
+    if arr.ndim == 2 or arr.shape[-1] == 1:
+        arr = arr.reshape(h, w, 1).repeat(3, axis=-1)
     if arr.shape[-1] == 4:
         rgb, alpha = arr[..., :3], arr[..., 3:4]
         arr = rgb * alpha + cam.bg[None, None, :] * (1.0 - alpha)

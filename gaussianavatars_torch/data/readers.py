@@ -1,8 +1,9 @@
-"""Dataset readers: Blender-synthetic and DynamicNerf (FLAME avatar) scenes
-(port of `gaussianavatars_tpu/data/readers.py`; reference
+"""Dataset readers: COLMAP, Blender-synthetic and DynamicNerf (FLAME
+avatar) scenes (port of `gaussianavatars_tpu/data/readers.py`; reference
 scene/dataset_readers.py:42-358). Return host-side `SceneInfo` records;
-pixels load later, in the data loader. The COLMAP reader is not ported
-yet (`data/scene.py` raises on a COLMAP folder).
+pixels load later, in the data loader. Image sizes come from the file
+headers (`utils/png.py::image_size`), so a COLMAP scene of JPEGs reads,
+although its views raise when the loader reaches them.
 """
 
 from __future__ import annotations
@@ -16,9 +17,18 @@ from typing import Optional
 import numpy as np
 
 from gaussianavatars_torch.data.cameras import Camera
+from gaussianavatars_torch.data.colmap import (
+    qvec2rotmat,
+    read_cameras_binary,
+    read_cameras_text,
+    read_images_binary,
+    read_images_text,
+    read_points3d_binary,
+    read_points3d_text,
+)
 from gaussianavatars_torch.ops.transforms import focal2fov, fov2focal
 from gaussianavatars_torch.utils import ply as plyio
-from gaussianavatars_torch.utils.png import png_size
+from gaussianavatars_torch.utils.png import image_size, png_size
 
 
 @dataclass
@@ -52,6 +62,65 @@ def get_nerfpp_norm(cameras: list[Camera]) -> dict:
     avg = centers.mean(axis=1, keepdims=True)
     diagonal = np.linalg.norm(centers - avg, axis=0).max()
     return {"translate": -avg.flatten(), "radius": diagonal * 1.1}
+
+
+def read_colmap_scene(path: str, images_dir: str = "images",
+                      eval_split: bool = False,
+                      llffhold: int = 8) -> SceneInfo:
+    """A COLMAP scene (reference :142-187): `sparse/0/{cameras,images}`
+    as `.bin`, else `.txt`; SIMPLE_PINHOLE and PINHOLE cameras only
+    (undistort others first); cameras sorted by image name, every
+    `llffhold`-th one a test camera with `eval_split`; the points from
+    `sparse/0/points3D.ply`, written once from `points3D.bin` or `.txt`."""
+    sparse = os.path.join(path, "sparse/0")
+    try:
+        extr = read_images_binary(os.path.join(sparse, "images.bin"))
+        intr = read_cameras_binary(os.path.join(sparse, "cameras.bin"))
+    except FileNotFoundError:
+        extr = read_images_text(os.path.join(sparse, "images.txt"))
+        intr = read_cameras_text(os.path.join(sparse, "cameras.txt"))
+
+    cams = []
+    for key in extr:
+        im = extr[key]
+        cam = intr[im.camera_id]
+        if cam.model == "SIMPLE_PINHOLE":
+            fovx = focal2fov(cam.params[0], cam.width)
+            fovy = focal2fov(cam.params[0], cam.height)
+        elif cam.model == "PINHOLE":
+            fovx = focal2fov(cam.params[0], cam.width)
+            fovy = focal2fov(cam.params[1], cam.height)
+        else:
+            raise ValueError(f"unsupported COLMAP camera model {cam.model}: "
+                             "undistort first")
+        image_path = os.path.join(path, images_dir, os.path.basename(im.name))
+        width, height = image_size(image_path)
+        cams.append(Camera(
+            uid=cam.id, R=qvec2rotmat(im.qvec).T, T=np.array(im.tvec),
+            fovx=fovx, fovy=fovy, width=width, height=height,
+            image_path=image_path,
+            image_name=os.path.basename(image_path).split(".")[0]))
+    cams.sort(key=lambda c: c.image_name)
+
+    if eval_split:
+        train = [c for i, c in enumerate(cams) if i % llffhold != 0]
+        test = [c for i, c in enumerate(cams) if i % llffhold == 0]
+    else:
+        train, test = cams, []
+
+    ply_path = os.path.join(sparse, "points3D.ply")
+    if not os.path.exists(ply_path):
+        try:
+            xyz, rgb, _ = read_points3d_binary(
+                os.path.join(sparse, "points3D.bin"))
+        except FileNotFoundError:
+            xyz, rgb, _ = read_points3d_text(
+                os.path.join(sparse, "points3D.txt"))
+        plyio.store_point_cloud(ply_path, xyz, rgb)
+    points, colors, _ = plyio.fetch_point_cloud(ply_path)
+    return SceneInfo(train_cameras=train, test_cameras=test,
+                     nerf_normalization=get_nerfpp_norm(train),
+                     points=points, colors=colors, ply_path=ply_path)
 
 
 def read_cameras_from_transforms(path: str, transforms_file: str,

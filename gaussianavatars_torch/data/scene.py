@@ -13,6 +13,7 @@ from typing import Optional
 from gaussianavatars_torch.data.cameras import Camera, camera_to_json
 from gaussianavatars_torch.data.readers import (
     read_blender_scene,
+    read_colmap_scene,
     read_dynamic_nerf_scene,
 )
 from gaussianavatars_torch.utils.system import (  # noqa: F401
@@ -27,9 +28,9 @@ class Scene:
 
         cfg: ModelConfig; gaussians: GaussianModel or FlameGaussianModel.
         The dataset type follows the sentinel files (reference
-        scene/__init__.py:90-99): `canonical_flame_param.npz` marks
-        DynamicNerf data, `transforms_train.json` Blender data; a `sparse/`
-        folder (COLMAP) raises, its reader is not ported yet. With
+        scene/__init__.py:90-99): a `sparse/` folder marks a COLMAP scene
+        (its images in `cfg.images`), `canonical_flame_param.npz`
+        DynamicNerf data, `transforms_train.json` Blender data. With
         `load_iteration` (-1: the latest) the model is read from
         `<model_path>/point_cloud/iteration_N/point_cloud.ply`, else made
         from the scene (`create_from_pcd`). `shuffle` shuffles the training
@@ -49,11 +50,8 @@ class Scene:
 
         src = cfg.source_path
         if os.path.exists(os.path.join(src, "sparse")):
-            raise NotImplementedError(
-                f"{src} is a COLMAP scene; the COLMAP reader "
-                "(data/readers.py::read_colmap_scene, data/colmap.py) is not "
-                "ported yet")
-        if os.path.exists(os.path.join(src, "canonical_flame_param.npz")):
+            info = read_colmap_scene(src, cfg.images, cfg.eval)
+        elif os.path.exists(os.path.join(src, "canonical_flame_param.npz")):
             print("Found canonical_flame_param.npz, assuming DynamicNerf data")
             info = read_dynamic_nerf_scene(
                 src, cfg.white_background, cfg.eval,

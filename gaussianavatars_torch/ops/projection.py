@@ -60,7 +60,7 @@ class CameraParams(NamedTuple):
     height: int
 
 
-def _cov3d_components(scales, quats):
+def _cov3d_components(scales, quats, scaling_modifier=1.0):
     """Sigma = R S S^T R^T as six [N] components (xx,xy,xz,yy,yz,zz)."""
     w, x, y, z = quat_normalize(quats).unbind(-1)
     r00 = 1.0 - 2.0 * (y * y + z * z)
@@ -73,9 +73,9 @@ def _cov3d_components(scales, quats):
     r21 = 2.0 * (y * z + w * x)
     r22 = 1.0 - 2.0 * (x * x + y * y)
 
-    s0 = scales[..., 0] ** 2
-    s1 = scales[..., 1] ** 2
-    s2 = scales[..., 2] ** 2
+    s0 = (scaling_modifier * scales[..., 0]) ** 2
+    s1 = (scaling_modifier * scales[..., 1]) ** 2
+    s2 = (scaling_modifier * scales[..., 2]) ** 2
 
     cxx = r00 * r00 * s0 + r01 * r01 * s1 + r02 * r02 * s2
     cxy = r00 * r10 * s0 + r01 * r11 * s1 + r02 * r12 * s2
@@ -138,8 +138,9 @@ def ndc2pix(ndc: torch.Tensor, size) -> torch.Tensor:
 
 
 def project_gaussians(means3d, scales, quats, opacities, shs, sh_degree: int,
-                      camera: CameraParams,
-                      means2d_offset=None) -> ProjectedGaussians:
+                      camera: CameraParams, scaling_modifier: float = 1.0,
+                      means2d_offset=None, colors_precomp=None,
+                      cov3d_precomp=None) -> ProjectedGaussians:
     """Project world-space gaussians to screen space.
 
     Args:
@@ -151,7 +152,13 @@ def project_gaussians(means3d, scales, quats, opacities, shs, sh_degree: int,
         K >= (sh_degree+1)^2.
       sh_degree: active SH degree.
       camera: CameraParams.
+      scaling_modifier: global scale multiplier (the viewer's control); it
+        does not touch `cov3d_precomp`.
       means2d_offset: optional [N, 2] added to the NDC xy.
+      colors_precomp: optional [N, 3] colours used as they are in place of
+        the SH evaluation (`shs` is then not read).
+      cov3d_precomp: optional [N, 3, 3] world covariances in place of the
+        scale/rotation covariance.
     """
     n = means3d.shape[0]
     focal_x = camera.width / (2.0 * camera.tan_fovx)
@@ -171,9 +178,15 @@ def project_gaussians(means3d, scales, quats, opacities, shs, sh_degree: int,
     means2d = torch.stack([ndc2pix(ndc_xy[..., 0], camera.width),
                            ndc2pix(ndc_xy[..., 1], camera.height)], dim=-1)
 
+    if cov3d_precomp is not None:
+        comps = (cov3d_precomp[..., 0, 0], cov3d_precomp[..., 0, 1],
+                 cov3d_precomp[..., 0, 2], cov3d_precomp[..., 1, 1],
+                 cov3d_precomp[..., 1, 2], cov3d_precomp[..., 2, 2])
+    else:
+        comps = _cov3d_components(scales, quats, scaling_modifier)
     c2xx, c2xy, c2yy = compute_cov2d_components(
-        means3d, _cov3d_components(scales, quats), camera.viewmatrix,
-        focal_x, focal_y, camera.tan_fovx, camera.tan_fovy)
+        means3d, comps, camera.viewmatrix, focal_x, focal_y,
+        camera.tan_fovx, camera.tan_fovy)
 
     det = c2xx * c2yy - c2xy ** 2
     det_ok = det > 0.0
@@ -216,12 +229,15 @@ def project_gaussians(means3d, scales, quats, opacities, shs, sh_degree: int,
     ext_x = torch.where(valid, ext_x, torch.zeros_like(ext_x))
     ext_y = torch.where(valid, ext_y, torch.zeros_like(ext_y))
 
-    dirs = means3d - camera.campos
-    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True),
-                              min=1e-12)
-    sh2c = shs if shs.ndim == 2 else flat_cmajor_from_kc(shs)
-    colors = torch.clamp(eval_sh_flat_cmajor(sh_degree, sh2c, dirs) + 0.5,
-                         min=0.0)
+    if colors_precomp is not None:
+        colors = colors_precomp
+    else:
+        dirs = means3d - camera.campos
+        dirs = dirs / torch.clamp(
+            torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
+        sh2c = shs if shs.ndim == 2 else flat_cmajor_from_kc(shs)
+        colors = torch.clamp(
+            eval_sh_flat_cmajor(sh_degree, sh2c, dirs) + 0.5, min=0.0)
 
     return ProjectedGaussians(
         means2d=means2d, depths=depths, conics=conics, colors=colors,

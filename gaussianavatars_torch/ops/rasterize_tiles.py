@@ -40,7 +40,10 @@ def rasterize(
     tile_size: int = 32,
     tile_row_start: int = 0,
     tile_rows: Optional[int] = None,
+    scaling_modifier: float = 1.0,
     means2d_offset: Optional[torch.Tensor] = None,
+    colors_precomp: Optional[torch.Tensor] = None,
+    cov3d_precomp: Optional[torch.Tensor] = None,
     mark: Optional[Callable[[str], None]] = None,
 ) -> RenderOutput:
     """Tile-based splat render (reference gaussian_renderer/__init__.py:86-94).
@@ -49,13 +52,17 @@ def rasterize(
     `tile_rows * tile_size` pixel rows starting at pixel row
     `tile_row_start * tile_size`, possibly running past the image bottom;
     callers crop). `means2d_offset` ([N, 2] zeros) is added to the NDC
-    centers; its gradient is the densification signal. `mark`, if
+    centers; its gradient is the densification signal.
+    `scaling_modifier`, `colors_precomp` ([N, 3]) and `cov3d_precomp`
+    ([N, 3, 3]) are those of `project_gaussians`. `mark`, if
     given, is called with each stage's name as the stage is issued
     ("projection", "binning", "pack_gather", "blend", "composite"); the
     chip smoke test records CUDA events there.
     """
-    proj = project_gaussians(means3d, scales, quats, opacities, shs,
-                             sh_degree, camera, means2d_offset)
+    proj = project_gaussians(
+        means3d, scales, quats, opacities, shs, sh_degree, camera,
+        scaling_modifier=scaling_modifier, means2d_offset=means2d_offset,
+        colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp)
     if mark:
         mark("projection")
     binning = bin_gaussians_dense(

@@ -1,9 +1,13 @@
-"""Real spherical-harmonics evaluation, degrees 0..4 (forward only; port of
-`gaussianavatars_tpu/ops/sh.py`, reference utils/sh_utils.py:57-118).
+"""Real spherical-harmonics evaluation, degrees 0..4 (port of
+`gaussianavatars_tpu/ops/sh.py`, reference utils/sh_utils.py:57-118;
+autograd gives the backward).
 
-Coefficients use the flat CHANNEL-major layout [N, 3*K] ([all K red | all
-K green | all K blue]), the production layout of
-`models/gaussians.GaussianParams` and the reference PLY f_rest_* order.
+The render path's coefficients use the flat CHANNEL-major layout [N, 3*K]
+([all K red | all K green | all K blue]), the production layout of
+`models/gaussians.GaussianParams` and the reference PLY f_rest_* order
+(`eval_sh_flat_cmajor`). `eval_sh` is the reference's [..., C, K] form,
+which the `convert_SHs_python` pipeline option evaluates outside the
+rasterizer.
 """
 
 from __future__ import annotations
@@ -39,6 +43,63 @@ _C4 = (
     -1.7701307697799304,
     0.6258357354491761,
 )
+
+
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
+def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """SH values [..., C] along unit directions `dirs` [..., 3] from
+    coefficients `sh` [..., C, K], K >= (degree+1)^2, summed term by term
+    in the reference's order (no +0.5 shift or clamp: callers apply it)."""
+    assert 0 <= degree <= 4
+    result = _C0 * sh[..., 0]
+    if degree > 0:
+        x = dirs[..., 0:1]
+        y = dirs[..., 1:2]
+        z = dirs[..., 2:3]
+        result = (result - _C1 * y * sh[..., 1] + _C1 * z * sh[..., 2]
+                  - _C1 * x * sh[..., 3])
+        if degree > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            result = (
+                result
+                + _C2[0] * xy * sh[..., 4]
+                + _C2[1] * yz * sh[..., 5]
+                + _C2[2] * (2.0 * zz - xx - yy) * sh[..., 6]
+                + _C2[3] * xz * sh[..., 7]
+                + _C2[4] * (xx - yy) * sh[..., 8]
+            )
+            if degree > 2:
+                result = (
+                    result
+                    + _C3[0] * y * (3.0 * xx - yy) * sh[..., 9]
+                    + _C3[1] * xy * z * sh[..., 10]
+                    + _C3[2] * y * (4.0 * zz - xx - yy) * sh[..., 11]
+                    + _C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy)
+                    * sh[..., 12]
+                    + _C3[4] * x * (4.0 * zz - xx - yy) * sh[..., 13]
+                    + _C3[5] * z * (xx - yy) * sh[..., 14]
+                    + _C3[6] * x * (xx - 3.0 * yy) * sh[..., 15]
+                )
+                if degree > 3:
+                    result = (
+                        result
+                        + _C4[0] * xy * (xx - yy) * sh[..., 16]
+                        + _C4[1] * yz * (3.0 * xx - yy) * sh[..., 17]
+                        + _C4[2] * xy * (7.0 * zz - 1.0) * sh[..., 18]
+                        + _C4[3] * yz * (7.0 * zz - 3.0) * sh[..., 19]
+                        + _C4[4] * (zz * (35.0 * zz - 30.0) + 3.0)
+                        * sh[..., 20]
+                        + _C4[5] * xz * (7.0 * zz - 3.0) * sh[..., 21]
+                        + _C4[6] * (xx - yy) * (7.0 * zz - 1.0) * sh[..., 22]
+                        + _C4[7] * xz * (xx - 3.0 * yy) * sh[..., 23]
+                        + _C4[8] * (xx * (xx - 3.0 * yy)
+                                    - yy * (3.0 * xx - yy)) * sh[..., 24]
+                    )
+    return result
 
 
 def sh_basis(degree: int, dirs: torch.Tensor, k: int) -> torch.Tensor:

@@ -6,7 +6,8 @@
         [-t <target dataset>] [--device cuda]
 
 The flags are the root tool's: the ModelConfig group (defaults filled in
-from the run's cfg.json), the PipelineConfig group, --iteration (default
+from the run's cfg.json), the PipelineConfig group (with
+--convert_SHs_python, --compute_cov3D_python, --debug), --iteration (default
 -1, the latest), --skip_train, --skip_val, --skip_test, --quiet and
 --render_mesh, plus --device (default cuda; without a GPU the run raises
 unless it is cpu). Each split, or with --target_path the target's cameras

@@ -5,14 +5,16 @@ reference train.py:316-353):
         --bind_to_mesh [--eval] [--iterations N] [--device cuda]
 
 The flags are the reference's (the ModelConfig, OptimizationConfig and
-PipelineConfig groups; --test_iterations, --save_iterations,
---checkpoint_iterations, --start_checkpoint, --quiet, --seed), plus
+PipelineConfig groups, with --convert_SHs_python, --compute_cov3D_python
+and --debug; --test_iterations, --save_iterations, --checkpoint_iterations,
+--start_checkpoint, --debug_from, --detect_anomaly, --quiet, --seed), plus
 --device (default cuda; the run raises when no GPU is present unless it is
 cpu). --interval (default 60000) is the iteration interval of the tests,
-saves and checkpoints not listed explicitly. The network viewer, the
-profiler, anomaly detection and multi-host flags of the JAX package's
-script (--ip, --port, --no_gui, --profile_dir, --detect_anomaly,
---distributed) are not accepted: they are not ported.
+saves and checkpoints not listed explicitly. --detect_anomaly runs the
+training under `torch.autograd.set_detect_anomaly(True)`. The network
+viewer, the profiler and multi-host flags of the JAX package's script
+(--ip, --port, --no_gui, --profile_dir, --distributed) are not accepted:
+they are not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import contextlib
 import os
 import sys
 from argparse import ArgumentParser
+
+import torch
 
 from gaussianavatars_torch.config import (
     ModelConfig,
@@ -42,6 +46,12 @@ def main(argv=None):
     parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
                         default=[])
     parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--debug_from", type=int, default=-1,
+                        help="set the pipeline's debug option (stop with a "
+                             "state snapshot at a non-finite loss) from "
+                             "this iteration on")
+    parser.add_argument("--detect_anomaly", action="store_true",
+                        help="train under torch.autograd anomaly detection")
     parser.add_argument("--quiet", action="store_true",
                         help="print nothing")
     parser.add_argument("--seed", type=int, default=0)
@@ -66,11 +76,14 @@ def main(argv=None):
         if args.quiet:
             stack.enter_context(contextlib.redirect_stdout(
                 stack.enter_context(open(os.devnull, "w"))))
+        if args.detect_anomaly:
+            stack.enter_context(torch.autograd.set_detect_anomaly(True))
         print("Optimizing " + model_cfg.model_path)
         training(model_cfg, opt_cfg, pipe_cfg,
                  testing_iterations=set(tests), saving_iterations=set(saves),
                  checkpoint_iterations=set(checkpoints),
-                 start_checkpoint=args.start_checkpoint, seed=args.seed,
+                 start_checkpoint=args.start_checkpoint,
+                 debug_from=args.debug_from, seed=args.seed,
                  device=args.device)
         print("\nTraining complete.")
 

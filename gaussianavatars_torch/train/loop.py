@@ -35,8 +35,10 @@ from gaussianavatars_torch.models.gaussians import (
     GaussianParams,
     world_space_gaussians,
 )
+from gaussianavatars_torch.ops.covariance import build_covariance_3d
 from gaussianavatars_torch.ops.projection import CameraParams
 from gaussianavatars_torch.ops.rasterize_tiles import RenderOutput, rasterize
+from gaussianavatars_torch.ops.sh import eval_sh
 from gaussianavatars_torch.ops.ssim import ssim
 from gaussianavatars_torch.train import optim
 from gaussianavatars_torch.train.losses import compute_losses
@@ -80,25 +82,47 @@ def _check_pipeline(pipe_cfg: PipelineConfig):
             f"binning {pipe_cfg.binning!r} is not ported; use 'dense'")
 
 
+def _precomputed(pipe_cfg: PipelineConfig, camera: CameraParams, means3d,
+                 scales, quats, shs, sh_degree: int) -> dict:
+    """The `colors_precomp` / `cov3d_precomp` arguments of `rasterize` that
+    the pipeline options ask for (reference gaussian_renderer/__init__.py:
+    63-81): the SH colours evaluated by `eval_sh` on the coefficients as
+    [N, 3, K], and the covariance built from the scales and rotations."""
+    out = {}
+    if pipe_cfg.convert_SHs_python:
+        dirs = means3d - camera.campos
+        dirs = dirs / torch.clamp(
+            torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
+        # flat channel-major [N, 3*K] -> [N, 3, K]: the channel axis at -2
+        out["colors_precomp"] = torch.clamp(
+            eval_sh(sh_degree, shs.reshape(shs.shape[0], 3, -1), dirs) + 0.5,
+            min=0.0)
+    if pipe_cfg.compute_cov3D_python:
+        out["cov3d_precomp"] = build_covariance_3d(scales, quats)
+    return out
+
+
 def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
                    sh_degree: int):
     """Inference render of `model` at width x height.
 
     Returns render(params, flame_param, binding, cam, bg, timestep,
-    mark=None) -> RenderOutput. For a FLAME-bound model every call drives
-    the mesh at `timestep` (FLAME forward, per-face frames), carries the
-    Gaussians into world space through their bound faces, and rasterizes;
-    an unbound model (binding None) renders its parameters as they are.
-    `mark` is the per-stage hook of `rasterize`, also called after
-    "flame_frames" and "binding".
+    mark=None, scaling_modifier=1.0) -> RenderOutput. For a FLAME-bound
+    model every call drives the mesh at `timestep` (FLAME forward, per-face
+    frames), carries the Gaussians into world space through their bound
+    faces, and rasterizes; an unbound model (binding None) renders its
+    parameters as they are. `pipe_cfg.convert_SHs_python` and
+    `compute_cov3D_python` precompute the colours and covariances outside
+    the rasterizer. `mark` is the per-stage hook of `rasterize`, also
+    called after "flame_frames" and "binding".
     """
     _check_pipeline(pipe_cfg)
     bound = model.binding is not None
 
     @torch.no_grad()
     def render(params, flame_param, binding, cam: CameraArrays,
-               bg: torch.Tensor, timestep: int = 0,
-               mark=None) -> RenderOutput:
+               bg: torch.Tensor, timestep: int = 0, mark=None,
+               scaling_modifier: float = 1.0) -> RenderOutput:
         camera = _camera(cam, width, height)
         frames = None
         if bound:
@@ -110,7 +134,10 @@ def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
         if mark:
             mark("binding")
         return rasterize(means3d, scales, quats, opac, shs, sh_degree,
-                         camera, bg, tile_size=pipe_cfg.tile_size, mark=mark)
+                         camera, bg, tile_size=pipe_cfg.tile_size,
+                         scaling_modifier=scaling_modifier, mark=mark,
+                         **_precomputed(pipe_cfg, camera, means3d, scales,
+                                        quats, shs, sh_degree))
 
     return render
 
@@ -178,7 +205,9 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
     the gradients of the Gaussian parameters, the FLAME trainables and the
     offset, applies one Adam step and updates the densification statistics
     (reference train.py:127-210). An unbound model (binding None) trains
-    its parameters as they are.
+    its parameters as they are. The pipeline options precompute the
+    colours and covariances as `make_render_fn` does; their gradients
+    reach the parameters through autograd.
 
     The state's tensors are updated IN PLACE (parameters, moments and
     statistics) and returned in the new state; the state passed in must
@@ -218,7 +247,9 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
                 mark("binding")
             out = rasterize(means3d, scales, quats, opac, shs, sh_degree,
                             camera, bg, tile_size=pipe_cfg.tile_size,
-                            means2d_offset=offset, mark=mark)
+                            means2d_offset=offset, mark=mark,
+                            **_precomputed(pipe_cfg, camera, means3d, scales,
+                                           quats, shs, sh_degree))
             total, losses = compute_losses(
                 out.image, gt_image, out.visibility, params.xyz,
                 params.scaling, face_scale, opt_cfg, bound)
@@ -316,7 +347,7 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
              pipe_cfg: PipelineConfig, testing_iterations=(),
              saving_iterations=(), checkpoint_iterations=(),
              start_checkpoint: Optional[str] = None, log_every: int = 10,
-             tb_writer=None, gui=None, seed: int = 0,
+             tb_writer=None, gui=None, debug_from: int = -1, seed: int = 0,
              device: str | torch.device = "cuda"):
     """Train an avatar on the dataset of `model_cfg.source_path` (reference
     train.py:35-214, the JAX package's `training`).
@@ -330,7 +361,11 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     `saving_iterations`, evaluates the val and test splits at
     `testing_iterations` and writes `chkpnt<N>.npz` at
     `checkpoint_iterations`. `start_checkpoint` resumes from a checkpoint
-    of either package.
+    of either package. From iteration `debug_from` on (reference
+    train.py --debug_from) `pipe_cfg.debug` is set; with it set, a
+    non-finite loss read at a log point writes the state to
+    `snapshot_fw_<iteration>.npz` in the model directory and raises
+    FloatingPointError.
 
     The loss is read on the host only every `log_every` iterations (the
     previous iteration's, which the device has finished, as the JAX loop
@@ -399,6 +434,8 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
 
     try:
         for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
+            if debug_from >= 0 and iteration >= debug_from:
+                pipe_cfg.debug = True
             xyz_lr = float(expon_lr(
                 iteration,
                 opt_cfg.position_lr_init * model.spatial_lr_scale,
@@ -438,6 +475,13 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                 src = (losses if iteration == opt_cfg.iterations
                        or prev_losses is None else prev_losses)
                 total = src["total"].item()
+                if pipe_cfg.debug and not np.isfinite(total):
+                    snap = os.path.join(model_cfg.model_path,
+                                        f"snapshot_fw_{iteration}.npz")
+                    save_checkpoint(model, state, iteration, snap)
+                    raise FloatingPointError(
+                        f"non-finite loss at iteration {iteration}; state "
+                        f"written to {snap}")
                 ema_loss = (total if ema_loss is None
                             else 0.4 * total + 0.6 * ema_loss)
                 history.append((iteration, ema_loss))

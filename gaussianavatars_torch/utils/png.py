@@ -4,7 +4,9 @@ The port's counterpart of the PIL and libpng (`gaussianavatars_tpu/native`)
 image IO of the JAX loader (`gaussianavatars_tpu/data/loader.py:47-74`).
 The GPU host the port runs on has numpy but no PIL and no libpng headers,
 so the port reads and writes its images with this module and nothing
-else; any other format raises an error that names the file.
+else; any other format raises an error that names the file. `image_size`
+also reads the size of a JPEG from its header (COLMAP scenes), which this
+module does not decode.
 
 Supported: non-interlaced PNGs of bit depth 8, gray (color type 0), RGB (2)
 and RGBA (6), with any of the five row filters. An image whose rows use
@@ -80,6 +82,44 @@ def png_size(path: str) -> tuple[int, int]:
         raise PNGError(f"{path}: the first chunk is not IHDR")
     w, h, _ = _header(head[16:29], path)
     return w, h
+
+
+_JPEG_SOF = (0xC0, 0xC1, 0xC2)      # baseline, extended, progressive
+
+
+def _jpeg_size(path: str, buf: bytes) -> tuple[int, int]:
+    """(width, height) from the first SOF0/1/2 segment of a JPEG."""
+    pos = 2
+    while pos + 4 <= len(buf):
+        if buf[pos] != 0xFF:
+            raise PNGError(f"{path}: corrupt JPEG marker at byte {pos}")
+        marker = buf[pos + 1]
+        if marker == 0xFF:                       # fill byte
+            pos += 1
+            continue
+        if marker == 0x01 or 0xD0 <= marker <= 0xD8:   # no length field
+            pos += 2
+            continue
+        if marker in (0xD9, 0xDA):               # end of image, scan data
+            break
+        (length,) = struct.unpack(">H", buf[pos + 2:pos + 4])
+        if marker in _JPEG_SOF:
+            h, w = struct.unpack(">HH", buf[pos + 5:pos + 9])
+            return w, h
+        pos += 2 + length
+    raise PNGError(f"{path}: no SOF0/1/2 segment before the scan data")
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """(width, height) of a PNG (its IHDR chunk) or a JPEG (its first
+    SOF0/1/2 segment) from the file's header, without decoding it. Only
+    the PNGs `read_png` reads decode; other formats raise naming the
+    file."""
+    with open(path, "rb") as f:
+        head = f.read(3)
+        if head.startswith(b"\xff\xd8\xff"):
+            return _jpeg_size(path, head + f.read())
+    return png_size(path)
 
 
 def _paeth(a, b, c):

@@ -8,9 +8,10 @@ On the JAX tests' avatar fixture (48x40, 2 timesteps, 3 cameras):
   * `load_camera_image` matches within atol 1e-6 (RGB, RGBA composited on
     the background, gray);
   * the first 2 epochs of `CameraLoader(seed=0)` deliver the same cameras.
-Also: resizing (shape and range only: it is not PIL's resampler), camera
-matrices and `camera_to_json`, the configuration classes and files, and
-the image metrics and error map.
+Also: resized views (the auto-cap, -r 2 and -r 4 of RGB and RGBA
+sources) within 2/255 of the JAX loader's PIL resize, a `sparse/` folder
+read as COLMAP, camera matrices and `camera_to_json`, the configuration
+classes and files, and the image metrics and error map.
 """
 
 import json
@@ -110,11 +111,17 @@ def test_scene_initial_gaussians_match_jax(scenes):
 
 
 def test_scene_raises_on_colmap(tmp_path):
+    """A `sparse/` folder is read as a COLMAP scene, as the JAX package
+    reads it: without its files both raise the same error."""
     (tmp_path / "sparse").mkdir()
     cfg = config.ModelConfig(source_path=str(tmp_path),
                              model_path=str(tmp_path / "out"))
-    with pytest.raises(NotImplementedError, match="COLMAP"):
+    with pytest.raises(FileNotFoundError, match="images.txt"):
         Scene(cfg, None)
+    with pytest.raises(FileNotFoundError, match="images.txt"):
+        JaxScene(jax_config.ModelConfig(source_path=str(tmp_path),
+                                        model_path=str(tmp_path / "out")),
+                 None)
 
 
 def test_load_camera_image_matches_jax(scenes):
@@ -164,18 +171,35 @@ def test_loader_order_matches_jax(scenes):
     assert not any(t.is_alive() for t in tl._threads)
 
 
-def test_resize_shape_and_range(tmp_path):
-    path = str(tmp_path / "wide.png")
-    rng = np.random.default_rng(0)
-    Image.fromarray(rng.integers(0, 256, (30, 1700, 3), dtype=np.uint8)
-                    ).save(path)
-    cam = cameras.Camera(uid=0, R=np.eye(3), T=np.zeros(3), fovx=1.0,
-                         fovy=0.1, width=1700, height=30, image_path=path)
-    assert cam.resolution() == (1600, 28)
-    out = loader.load_camera_image(cam)
-    assert out.shape == (3, 28, 1600) and out.dtype == np.float32
-    assert 0.0 <= out.min() and out.max() <= 1.0
-    assert 0.3 < out.mean() < 0.7
+@pytest.mark.parametrize("mode", ["RGB", "RGBA"])
+@pytest.mark.parametrize("size,resolution", [((1700, 30), -1),
+                                             ((131, 97), 2),
+                                             ((131, 97), 4)])
+def test_resize_matches_jax(mode, size, resolution, tmp_path):
+    """A resized view (the 1600 px auto-cap, -r 2, -r 4) equals the JAX
+    loader's, which resizes with PIL's bicubic default before compositing
+    RGBA onto the background, within 2/255."""
+    w, h = size
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = 127.5 + 120 * np.sin(xx / 17.0 + yy / 11.0)[..., None] \
+        * np.float64([1.0, -0.7, 0.4])
+    img = np.clip(smooth + rng.normal(0, 25, (h, w, 3)), 0, 255)
+    if mode == "RGBA":
+        alpha = np.clip(xx * 300.0 / w - 20, 0, 255)[..., None]
+        img = np.concatenate([img, alpha], axis=-1)
+    path = str(tmp_path / f"view_{mode}.png")
+    Image.fromarray(img.astype(np.uint8), mode).save(path)
+    common = dict(uid=0, R=np.eye(3), T=np.zeros(3), fovx=1.0, fovy=0.1,
+                  width=w, height=h, image_path=path,
+                  bg=np.float32([0.2, 0.5, 1.0]))
+    tcam, jcam = cameras.Camera(**common), jax_cameras.Camera(**common)
+    tw, th = tcam.resolution(resolution)
+    assert (tw, th) == jcam.resolution(resolution) != (w, h)
+    got = loader.load_camera_image(tcam, resolution)
+    ref = jax_loader.load_camera_image(jcam, resolution)
+    assert got.shape == ref.shape == (3, th, tw) and got.dtype == np.float32
+    assert np.abs(got - ref).max() <= 2.0 / 255.0
 
 
 def test_camera_params_match_jax():
@@ -212,8 +236,7 @@ def test_camera_params_match_jax():
 def test_config_matches_jax(tmp_path):
     tpu_only = {"backend", "chunk", "capacity", "slab_tile_rows",
                 "level_scale", "level_scales", "data_parallel",
-                "render_parallel", "convert_SHs_python",
-                "compute_cov3D_python", "debug"}
+                "render_parallel"}
     for name in ("ModelConfig", "OptimizationConfig", "PipelineConfig"):
         got = vars(getattr(config, name)())
         ref = vars(getattr(jax_config, name)())
@@ -228,12 +251,14 @@ def test_config_matches_jax(tmp_path):
         cls.add_to_parser(parser)
     args = parser.parse_args(["-s", "data", "-m", str(tmp_path), "-w",
                               "--iterations", "7", "--tile_size", "16",
-                              "--bind_to_mesh"])
+                              "--bind_to_mesh", "--convert_SHs_python",
+                              "--debug"])
     model_cfg = config.ModelConfig.extract(args)
     assert model_cfg.white_background and model_cfg.bind_to_mesh
     assert model_cfg.source_path == os.path.abspath("data")
     assert config.OptimizationConfig.extract(args).iterations == 7
-    assert config.PipelineConfig.extract(args).tile_size == 16
+    assert config.PipelineConfig.extract(args) == config.PipelineConfig(
+        convert_SHs_python=True, debug=True, tile_size=16)
 
     config.save_config(str(tmp_path), model_cfg)
     assert config.load_config(str(tmp_path)) == model_cfg

@@ -146,12 +146,16 @@ def test_kernel_build_raises_without_nvcc():
 
 FORBIDDEN = ("jax", "jaxlib", "gaussianavatars_tpu", "tests", "PIL", "tqdm",
              "tensorboardX")
-# the offline tools' modules, which the GPU host must import as well
+# the offline tools' modules, the COLMAP reader and the quality protocols,
+# which the GPU host must import as well
 NEW_MODULES = ("gaussianavatars_torch.metrics",
                "gaussianavatars_torch.metrics_lib.lpips",
                "gaussianavatars_torch.models.flame_mask_tables",
                "gaussianavatars_torch.render.__main__",
-               "gaussianavatars_torch.render.mesh_renderer")
+               "gaussianavatars_torch.render.mesh_renderer",
+               "gaussianavatars_torch.data.colmap",
+               "gaussianavatars_torch.examples.bound_avatar_recovery",
+               "gaussianavatars_torch.examples.synthetic_recovery")
 
 
 def test_port_imports_no_jax():

@@ -143,7 +143,11 @@ def test_train_needs_a_gpu_unless_asked(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "o"),
                         "--bind_to_mesh", "--iterations", "1"])
-    for flag in ("--no_gui", "--distributed", "--detect_anomaly"):
+    # accepted, and like every other run it needs the GPU unless asked
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "o"),
+                        "--detect_anomaly", "--debug_from", "1"])
+    for flag in ("--no_gui", "--distributed", "--profile_dir"):
         with pytest.raises(SystemExit):
             train_cli.main(["-s", str(tmp_path), flag])
 
