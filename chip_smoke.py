@@ -84,7 +84,31 @@ Phases (any failure exits non-zero before the result line):
      max|d| / max|default| <= 2e-4), beside the image's float32
      sensitivity (every scale one ulp larger), and one
      render with `scaling_modifier=2.0`, whose longer stream K1 matches its
-     plain version on (max|d| <= 1e-3).
+     plain version on (max|d| <= 1e-3);
+ 11. the viewers, observability, the FPS benchmarks and JPEG views
+     (`viewer_phase`): `local_viewer.LocalViewerCore` on phase 8's PLY
+     (101,440 Gaussians) renders 40 orbit frames at 960x540 and 20 with
+     the mesh (render and host copy timed apart), and K1 holds its plain
+     version on the last frame's stream (max|d| <= 1e-3); a 20-iteration
+     `training` on phase 8's dataset with a `NetworkGUI` on a free port,
+     whose client (a thread) pauses it for 10 views at 802x550 and then
+     asks for one view an iteration: every served frame within 1e-6 of
+     `make_render_fn`'s at the same state, round trips timed, and the same
+     run without a client for the ms per iteration; its tensorboard event
+     file read back here (every record's CRC32C, the scalar tags at every
+     log point, the eval's images and histogram); `python -m
+     gaussianavatars_torch.train --profile_dir` for 10 iterations, whose
+     Chrome trace must name both kernels, and the profiler's cost in
+     process; `fps_benchmark_demo --point_path` (100 renders) and
+     `fps_benchmark_dataset` on phase 8's model directory (50 renders a
+     split), K1 counted; the JPEG fixtures of `fixtures/jpeg/` decoded by
+     nvJPEG through the loader's `read_image` against PIL's pixels and the
+     plain decoder's, and its ms per 802x550 view beside `read_png`'s;
+     phase 10's COLMAP scene re-encoded as baseline JPEGs (`encode_jpeg`
+     here: the GPU host has no encoder) and trained 30 iterations, every
+     view decoded by nvJPEG in the loader's threads. `--fps-protocol` adds
+     both benchmarks' reference protocol (500 renders x 3 rounds) and one
+     3840x2160 demo run with its peak device memory.
 The `kernels` line is the last but one, the card's name and power limit
 the line before it. The last line is {"ok": true, "device": {...}}.
 Nothing here imports JAX.
@@ -93,6 +117,7 @@ Nothing here imports JAX.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import os
 import shutil
@@ -126,6 +151,30 @@ COLMAP_CLI_ITERATIONS = 30    # phase 10: `train` on the COLMAP copy
 BOUND_SIZE = (448, 400)       # the bound protocol's recorded size
 SYNTH_SIZE = (400, 400)       # the unbound protocol's default size
 SCALING_MODIFIER = 2.0        # phase 10: the viewer's scale control
+VIEWER_FRAMES = 40            # phase 11: orbit frames of the local viewer
+MESH_FRAMES = 20              # phase 11: of them again with the mesh
+GUI_ITERATIONS = 20           # phase 11: the observed training run
+PAUSED_FRAMES = 10            # phase 11: views served while it is paused
+GUI_SIZE = (802, 550)         # phase 11: the network viewer's frames
+PROFILE_ITERATIONS = 10       # phase 11: `train --profile_dir`
+FPS_DEMO = (100, 1)           # phase 11: renders a round, rounds
+FPS_DATASET = (50, 1)
+JPEG_ITERATIONS = 30          # phase 11: training on JPEG views
+# phase 11: a served frame against make_render_fn's at the same state (the
+# same path on the same inputs)
+TOL_GUI = 1e-6
+# phase 11: nvJPEG's pixels against PIL's, per fixture of fixtures/jpeg
+# (levels of 255): (max, mean). nvJPEG's IDCT and chroma upsampling are not
+# libjpeg's: on an NVIDIA H100 80GB HBM3 (700 W) it differed by
+# max / mean 9 / 0.615 on the 4:2:0 render, 26-33 / 4.9-5.6 on the small
+# subsampled fixtures (strong chroma noise, every pixel a colour edge),
+# 3 / 0.506 on 4:4:4 and 1 / 0.019 on gray; each limit is that measurement
+# plus 2 levels and 0.1 level.
+JPEG_LIMITS = {"bench_802x550.jpg": (11, 0.72), "gray_45x29.jpg": (3, 0.12),
+               "progressive_48x40.jpg": (33, 5.48),
+               "restart_57x41.jpg": (35, 5.0), "rgb420_37x29.jpg": (28, 5.28),
+               "rgb422_33x17.jpg": (29, 5.67), "rgb444_33x17.jpg": (5, 0.61)}
+JPEG_444_MAX = JPEG_LIMITS["rgb444_33x17.jpg"][0]   # the 4:4:4 views
 # phase 10, an option path's image against the default path's. Colours
 # enter the blend linearly, so precomputed SH colours hold max|d| <=
 # TOL_OPTION_IMAGE everywhere. A precomputed covariance rounds otherwise,
@@ -1274,7 +1323,794 @@ def options_phase(dev, model, cam, width, height):
     return out, stream
 
 
-def main() -> int:
+def crc32c_bitwise(data: bytes) -> int:
+    """CRC-32C computed bit by bit (independent of the port's table)."""
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc ^= b
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 & -(crc & 1))
+    return crc ^ 0xFFFFFFFF
+
+
+def _masked(crc: int) -> int:
+    return ((((crc >> 15) | (crc << 17)) & 0xFFFFFFFF) + 0xA282EAD8) \
+        & 0xFFFFFFFF
+
+
+def _proto_fields(buf: bytes):
+    """(field number, wire type, value) of a protobuf message."""
+    pos, out = 0, []
+
+    def varint():
+        nonlocal pos
+        shift = value = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            value |= (b & 0x7F) << shift
+            shift += 7
+            if b < 0x80:
+                return value
+
+    while pos < len(buf):
+        key = varint()
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            out.append((field, wire, varint()))
+        elif wire == 1:
+            out.append((field, wire, buf[pos:pos + 8]))
+            pos += 8
+        elif wire == 5:
+            out.append((field, wire, buf[pos:pos + 4]))
+            pos += 4
+        elif wire == 2:
+            n = varint()
+            out.append((field, wire, buf[pos:pos + n]))
+            pos += n
+        else:
+            raise SmokeFailure(f"protobuf wire type {wire}")
+    return out
+
+
+def event_file_steps(path: str) -> dict:
+    """{tag: [steps]} of a tensorboard event file, every record's two
+    masked CRC32Cs checked here; '<version>' holds the first record's
+    file_version."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    pos, tags, first = 0, {}, True
+    while pos < len(buf):
+        header = buf[pos:pos + 8]
+        (length,) = np.frombuffer(header, "<u8")
+        length = int(length)
+        (crc,) = np.frombuffer(buf[pos + 8:pos + 12], "<u4")
+        check(int(crc) == _masked(crc32c_bitwise(header)),
+              f"{path}: bad length CRC at byte {pos}")
+        data = buf[pos + 12:pos + 12 + length]
+        (crc,) = np.frombuffer(buf[pos + 12 + length:pos + 16 + length],
+                               "<u4")
+        check(int(crc) == _masked(crc32c_bitwise(data)),
+              f"{path}: bad data CRC at byte {pos}")
+        pos += 16 + length
+        fields = _proto_fields(data)
+        if first:
+            tags["<version>"] = [v.decode() for f, _, v in fields if f == 3]
+            first = False
+            continue
+        step = next((v for f, _, v in fields if f == 2), 0)
+        for f, _, summary in fields:
+            if f != 5:
+                continue
+            for vf, _, value in _proto_fields(summary):
+                tag = next(v for g, _, v in _proto_fields(value) if g == 1)
+                tags.setdefault(tag.decode(), []).append(step)
+    return tags
+
+
+# JPEG baseline encoding for the card's JPEG views (the GPU host has no
+# encoder): 4:4:4 YCbCr, the standard (Annex K) quantization tables scaled
+# by quality as libjpeg scales them, one interleaved scan, and Huffman
+# tables of fixed-length codes (4 bits for the 12 DC categories, 8 bits
+# for the 162 AC symbols), which any decoder reads from the file.
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_Q_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_Q_CHROMA = np.full(64, 99)
+_Q_CHROMA[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [
+    17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+_AC_SYMBOLS = [0x00, 0xF0] + [(r << 4) | s for r in range(16)
+                              for s in range(1, 11)]
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 90) -> bytes:
+    """uint8 [H, W, 3] -> baseline JPEG bytes (see the notes above)."""
+    h, w, _ = rgb.shape
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qts = [np.clip((q * scale + 50) // 100, 1, 255) for q in
+           (_Q_LUMA, _Q_CHROMA)]
+    x = rgb.astype(np.float64)
+    ycc = np.stack([
+        0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2],
+        -0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2] + 128,
+        0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2] + 128,
+    ]) - 128.0
+    ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
+    ycc = np.pad(ycc, ((0, 0), (0, ph - h), (0, pw - w)), mode="edge")
+    blocks = ycc.reshape(3, ph // 8, 8, pw // 8, 8).transpose(1, 3, 0, 2, 4)
+    k = np.arange(8)
+    dct = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) * 0.5
+    dct[0] /= np.sqrt(2.0)
+    coef = dct @ blocks @ dct.T                  # [by, bx, 3, 8, 8]
+    coef = coef.reshape(-1, 3, 64)
+    q = np.stack([qts[0], qts[1], qts[1]])        # natural order
+    quant = np.round(coef / q).astype(np.int64)[:, :, _ZIGZAG]
+    quant = quant.reshape(-1, 64)                 # blocks in MCU order
+    comp = np.tile(np.arange(3), quant.shape[0] // 3)
+    dc = quant[:, 0].copy()
+    for c in range(3):
+        dc[comp == c] = np.diff(np.concatenate([[0], dc[comp == c]]))
+
+    def size_and_bits(v):
+        s = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)
+        return s, np.where(v < 0, v + (1 << s) - 1, v)
+
+    ac_code = np.zeros(256, np.int64)
+    ac_code[_AC_SYMBOLS] = np.arange(len(_AC_SYMBOLS))
+    keys, values, lengths = [], [], []
+    nb = quant.shape[0]
+    s, bits = size_and_bits(dc)
+    keys.append(np.arange(nb) * 1000)
+    values.append((s << s) | bits)               # 4-bit code = category
+    lengths.append(4 + s)
+    blk, kk = np.nonzero(quant[:, 1:])
+    kk = kk + 1
+    prev = np.zeros_like(kk)
+    same = np.concatenate([[False], blk[1:] == blk[:-1]])
+    prev[same] = kk[:-1][same[1:]]
+    run = kk - prev - 1
+    v = quant[blk, kk]
+    s, bits = size_and_bits(v)
+    for z in range(3):                            # up to three ZRLs
+        zrl = run >= 16 * (z + 1)
+        keys.append(blk[zrl] * 1000 + kk[zrl] * 10 + z)
+        values.append(np.full(int(zrl.sum()), ac_code[0xF0]))
+        lengths.append(np.full(int(zrl.sum()), 8))
+    sym = ((run % 16) << 4) | s
+    keys.append(blk * 1000 + kk * 10 + 5)
+    values.append((ac_code[sym] << s) | bits)
+    lengths.append(8 + s)
+    last = np.zeros(nb, np.int64)
+    np.maximum.at(last, blk, kk)                  # the last nonzero k
+    eob = last < 63
+    keys.append(np.flatnonzero(eob) * 1000 + 999)
+    values.append(np.full(int(eob.sum()), ac_code[0x00]))
+    lengths.append(np.full(int(eob.sum()), 8))
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    values = np.concatenate(values)[order]
+    lengths = np.concatenate(lengths)[order]
+    item = np.repeat(np.arange(len(values)), lengths)
+    within = np.arange(len(item)) - np.repeat(np.cumsum(lengths) - lengths,
+                                              lengths)
+    stream = (values[item] >> (lengths[item] - 1 - within)) & 1
+    stream = np.concatenate([stream, np.ones((-len(stream)) % 8, np.int64)])
+    scan = np.packbits(stream.astype(np.uint8)).tobytes().replace(
+        b"\xff", b"\xff\x00")
+
+    def segment(marker, payload):
+        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(
+            2, "big") + payload
+
+    dqt = b"".join(bytes([i]) + bytes(qt[_ZIGZAG].astype(np.uint8))
+                   for i, qt in enumerate(qts))
+    dht = (bytes([0x00]) + bytes([0, 0, 0, 12] + [0] * 12) + bytes(range(12))
+           + bytes([0x10]) + bytes([0] * 7 + [len(_AC_SYMBOLS)] + [0] * 8)
+           + bytes(_AC_SYMBOLS))
+    sof = bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big") + bytes(
+        [3, 1, 0x11, 0, 2, 0x11, 1, 3, 0x11, 1])
+    sos = bytes([3, 1, 0x00, 2, 0x00, 3, 0x00, 0, 63, 0])
+    return (b"\xff\xd8" + segment(0xDB, dqt) + segment(0xC0, sof)
+            + segment(0xC4, dht) + segment(0xDA, sos) + scan + b"\xff\xd9")
+
+
+class TimedWriter:
+    """A tensorboard writer whose calls are timed: `seconds` {method:
+    seconds}, `calls` {method: count}."""
+
+    def __init__(self, writer):
+        self.writer = writer
+        self.seconds, self.calls = {}, {}
+
+    def __getattr__(self, name):
+        fn = getattr(self.writer, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name] = (self.seconds.get(name, 0.0)
+                                      + time.perf_counter() - t0)
+                self.calls[name] = self.calls.get(name, 0) + 1
+
+        return timed
+
+
+def _steady_ms(timeline) -> float:
+    """ms per iteration from the second logged iteration to the last."""
+    (i0, t0), (i1, t1) = timeline[1], timeline[-1]
+    return 1e3 * (t1 - t0) / max(i1 - i0, 1)
+
+
+def viewer_phase(dev, work, frames=VIEWER_FRAMES, mesh_frames=MESH_FRAMES,
+                 gui_iterations=GUI_ITERATIONS, paused_frames=PAUSED_FRAMES,
+                 gui_size=GUI_SIZE,
+                 profile_iterations=PROFILE_ITERATIONS,
+                 fps_demo=FPS_DEMO, fps_dataset=FPS_DATASET,
+                 jpeg_iterations=JPEG_ITERATIONS, viewer_size=(960, 540),
+                 protocol=False):
+    """Phase 11: the avatar served to the viewers, observed and timed (see
+    the module docstring), on phase 8's model directory (`<work>/io`) and
+    dataset (`<work>/data`) and phase 10's COLMAP scene
+    (`<work>/synthetic/colmap`). `fps_demo` and `fps_dataset` are (renders
+    a round, rounds); `protocol` adds the reference protocol (500 renders x
+    3 rounds) of both benchmarks and one 3840x2160 demo run. Returns the
+    numbers it measured, with K1's max|d| on the viewer's stream as
+    `k1_err`; raises on any failure."""
+    import math
+    import threading
+
+    from gaussianavatars_torch import fps_benchmark_dataset
+    from gaussianavatars_torch import fps_benchmark_demo
+    from gaussianavatars_torch.benchmark import (
+        blend_inputs, bound_bench_scene,
+    )
+    from gaussianavatars_torch.config import (
+        ModelConfig, OptimizationConfig, PipelineConfig,
+    )
+    from gaussianavatars_torch.data import colmap, loader
+    from gaussianavatars_torch.local_viewer import LocalViewerCore
+    from gaussianavatars_torch.ops import tile_blend
+    from gaussianavatars_torch.train import loop
+    from gaussianavatars_torch.utils.jpeg import read_jpeg
+    from gaussianavatars_torch.utils.nvjpeg import NvJpegDecoder
+    from gaussianavatars_torch.utils.png import read_png, write_png
+    from gaussianavatars_torch.utils.system import profile_trace
+    from gaussianavatars_torch.utils.tensorboard import SummaryWriter
+    from gaussianavatars_torch.viewer.network_gui import NetworkGUI
+    from gaussianavatars_torch.viewer.orbit_camera import OrbitCamera
+    from gaussianavatars_torch.viewer.remote_client import (
+        RemoteRenderClient, ViewRequest,
+    )
+
+    k1, k2 = tile_blend.blend_image_cuda, tile_blend.blend_image_bwd_cuda
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def count():
+        return {"blend_fwd": k1.launches, "blend_bwd": k2.launches}
+
+    def reset():
+        k1.launches = k2.launches = 0
+
+    out, launches = {}, {}
+    io_dir, data = os.path.join(work, "io"), os.path.join(work, "data")
+    ply = os.path.join(io_dir, "point_cloud", "iteration_1",
+                       "point_cloud.ply")
+
+    # ---- (a) the local viewer at its default size ---------------------------
+    t0 = time.perf_counter()
+    core = LocalViewerCore(ply, width=viewer_size[0], height=viewer_size[1],
+                           device=dev)
+    load_s = time.perf_counter() - t0
+    n_t = core.model.num_timesteps
+    core.render_tensor()
+    sync()
+
+    def orbit(i):
+        core.cam.orbit_y(2 * math.pi / frames)
+        core.timestep = i % n_t
+
+    reset()
+    t0 = time.perf_counter()
+    for i in range(frames):
+        orbit(i)
+        img = core.render_tensor()
+    sync()
+    render_ms = 1e3 * (time.perf_counter() - t0) / frames
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        host = img.cpu()
+    copy_ms = 1e3 * (time.perf_counter() - t0) / frames
+    t0 = time.perf_counter()
+    for i in range(mesh_frames):
+        orbit(i)
+        meshed = core.render_tensor(show_mesh=True)
+    sync()
+    mesh_ms = 1e3 * (time.perf_counter() - t0) / mesh_frames
+    launches["viewer"] = count()
+    check(launches["viewer"] == {"blend_fwd": frames + mesh_frames,
+                                 "blend_bwd": 0},
+          f"the viewer launched {launches['viewer']} for "
+          f"{frames + mesh_frames} frames")
+    check(tuple(host.shape) == (3, core.height, core.width),
+          f"viewer frame {tuple(host.shape)}")
+    check(bool(torch.isfinite(host).all()), "non-finite viewer frame")
+    covered = float((host < 0.99).any(0).float().mean())
+    check(covered > 0.01, f"the viewer's frame is blank ({covered})")
+    check(float((meshed - core.render_tensor()).abs().max()) > 0.05,
+          "the mesh overlay changed nothing")
+    # K1 against its plain version on the last frame's stream
+    inst, ranges, args = blend_inputs(
+        bound_bench_scene(core.model, core.timestep),
+        core.camera().to_params(device=dev), core.pipe.tile_size)
+    kout = tile_blend.blend_image(inst, ranges, *args)
+    sync()
+    ref = tile_blend.blend_image_plain(inst, ranges, *args)
+    k1_err = max(float((kout[0] - ref[0]).abs().max()),
+                 float((kout[1] - ref[1]).abs().max()))
+    print(f"[viewer] LocalViewerCore: {core.model.num_gaussians} Gaussians "
+          f"loaded in {load_s:.2f} s; {frames} orbit frames at "
+          f"{core.width}x{core.height}: render {render_ms:.3f} ms/frame, "
+          f"copy to the host {copy_ms:.3f} ms/frame; with the mesh "
+          f"{mesh_ms:.3f} ms/frame; covered {covered:.3f}; launches "
+          f"{launches['viewer']}; K1 vs plain on the frame's stream "
+          f"({inst.shape[0]} instances) max|d| {k1_err:.3e} (limit "
+          f"{TOL_BENCH:.0e})")
+    check(k1_err <= TOL_BENCH, f"K1 on the viewer stream: max|d| {k1_err}")
+    out["local"] = dict(size=[core.width, core.height], frames=frames,
+                        mesh_frames=mesh_frames, load_s=round(load_s, 3),
+                        render_ms=round(render_ms, 3),
+                        copy_ms=round(copy_ms, 3),
+                        mesh_ms=round(mesh_ms, 3),
+                        instances=int(inst.shape[0]), k1_max_abs_err=k1_err)
+    del core, inst, ranges, kout, ref
+
+    # ---- (b) the network viewer in training, tensorboard ----------------------
+    n_eval = 0
+    for split in ("val", "test"):
+        with open(os.path.join(data, f"transforms_{split}.json")) as f:
+            n_eval += len(json.load(f)["frames"])
+    cfg = dict(source_path=data, bind_to_mesh=True, eval=True, sh_degree=3)
+    gw, gh = gui_size
+    orig_poll = loop.gui_poll
+
+    def observed_run(name, iterations, connect):
+        """`training` with a listening NetworkGUI and a timed tensorboard
+        writer; with `connect`, a client pauses it at the first poll for
+        `paused_frames` views, then asks for one view an iteration and
+        lets go at the end. Every served frame is held against
+        make_render_fn's at the same state."""
+        run_dir = os.path.join(work, name)
+        server = NetworkGUI(port=0)
+        server.init()
+        served = dict(cams=[], images=[], frames=0, max_err=0.0)
+        receive, send = server.receive, server.send
+
+        def recording_receive():
+            cam, msg = receive()
+            if cam is not None:
+                served["cams"].append(cam)
+            return cam, msg
+
+        def recording_send(image, stats):
+            if image is not None:
+                served["images"].append(image.detach().clone())
+                served["frames"] += 1
+            send(image, stats)
+
+        server.receive, server.send = recording_receive, recording_send
+        ref_fns = {}
+
+        def checked_poll(gui, model, state, flame_fixed, pipe_cfg,
+                         iteration, total, fns):
+            orig_poll(gui, model, state, flame_fixed, pipe_cfg, iteration,
+                      total, fns)
+            before = k1.launches
+            for cam, img in zip(served["cams"], served["images"]):
+                key = (cam.width, cam.height)
+                if key not in ref_fns:
+                    ref_fns[key] = loop.make_render_fn(
+                        model, pipe_cfg, cam.width, cam.height,
+                        model.active_sh_degree)
+                ref = ref_fns[key](
+                    state.params, {**flame_fixed, **state.flame_tr},
+                    model.binding,
+                    loop.camera_arrays(cam.to_params(device=dev)),
+                    torch.ones(3, device=dev), int(cam.timestep)).image
+                served["max_err"] = max(served["max_err"], float(
+                    (img - ref.clamp(0.0, 1.0)).abs().max()))
+            served["cams"].clear()
+            served["images"].clear()
+            k1.launches = before        # the references are not the path's
+
+        res, thread = {}, None
+        if connect:
+            client = RemoteRenderClient(port=server.port, timeout=300.0)
+            check(client.connect(retries=20, wait=0.1),
+                  "the viewer client did not connect")
+
+            def client_run():
+                cam = OrbitCamera(gw, gh, r=1.0, fovy=20.0,
+                                  convention="opengl", save_path="")
+                res["rtt_paused"], res["rtt_training"] = [], []
+                try:
+                    for i in range(paused_frames + iterations):
+                        cam.orbit_y(2 * math.pi / 16)
+                        req = ViewRequest(
+                            width=gw, height=gh,
+                            fovx=math.radians(cam.fovx),
+                            fovy=math.radians(cam.fovy), znear=cam.znear,
+                            zfar=cam.zfar,
+                            world_view_transform=cam.world_view_transform,
+                            full_proj_transform=cam.full_proj_transform,
+                            timestep=i % res.get("timesteps", 1),
+                            do_training=i >= paused_frames)
+                        t0 = time.perf_counter()
+                        img, stats = client.request_view(req)
+                        res["rtt_paused" if i < paused_frames
+                            else "rtt_training"].append(
+                                time.perf_counter() - t0)
+                        res["timesteps"] = stats["num_timesteps"]
+                        res["stats"] = stats
+                        res["shape"] = img.shape
+                    client._send_json({"resolution_x": 0,
+                                       "resolution_y": 0,
+                                       "do_training": True,
+                                       "keep_alive": False})
+                except Exception as exc:   # reported by the main thread
+                    res["error"] = repr(exc)
+                finally:
+                    client.close()
+
+            thread = threading.Thread(target=client_run, daemon=True)
+            thread.start()
+        tb = TimedWriter(SummaryWriter(run_dir))
+        loop.gui_poll = checked_poll
+        try:
+            reset()
+            sync()
+            t0 = time.perf_counter()
+            model, _, info = loop.training(
+                ModelConfig(model_path=run_dir, **cfg),
+                OptimizationConfig(iterations=iterations,
+                                   position_lr_max_steps=iterations),
+                PipelineConfig(), testing_iterations={iterations},
+                log_every=1, tb_writer=tb, gui=server, device=dev)
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            loop.gui_poll = orig_poll
+            server.close()
+            tb.close()
+        if thread is not None:
+            thread.join(300)
+            check(not thread.is_alive(), "the viewer client hung")
+            check("error" not in res, f"viewer client: {res.get('error')}")
+        return dict(launches=count(), served=served, client=res, wall=wall,
+                    info=info, tb=tb, model=model, run_dir=run_dir)
+
+    con = observed_run("gui_run", gui_iterations, True)
+    alone = observed_run("gui_alone", gui_iterations, False)
+    frames_served = con["served"]["frames"]
+    launches["gui"] = con["launches"]
+    check(frames_served == paused_frames + gui_iterations,
+          f"{frames_served} frames served")
+    check(con["client"]["shape"] == (gh, gw, 3),
+          f"GUI frame {con['client']['shape']}")
+    check(con["client"]["stats"] == {
+        "num_timesteps": con["model"].num_timesteps,
+        "num_points": con["model"].num_gaussians},
+        f"GUI stats {con['client']['stats']}")
+    check(launches["gui"] == {
+        "blend_fwd": gui_iterations + frames_served + n_eval,
+        "blend_bwd": gui_iterations},
+        f"the observed run launched {launches['gui']} ({gui_iterations} "
+        f"iterations, {frames_served} frames, {n_eval} eval views)")
+    check(alone["launches"] == {"blend_fwd": gui_iterations + n_eval,
+                                "blend_bwd": gui_iterations},
+          f"the run without a client launched {alone['launches']}")
+    gui_err = con["served"]["max_err"]
+    check(gui_err <= TOL_GUI, f"GUI frames differ from make_render_fn's "
+                              f"by {gui_err}")
+    rtt_paused = 1e3 * float(np.mean(con["client"]["rtt_paused"]))
+    rtt_training = 1e3 * float(np.mean(con["client"]["rtt_training"]))
+    ms_client = _steady_ms(con["info"]["timeline"])
+    ms_alone = _steady_ms(alone["info"]["timeline"])
+    # the event file: every record's CRC, the tags at every log point
+    (events,) = [f for f in os.listdir(con["run_dir"])
+                 if f.startswith("events.out.tfevents.")]
+    tags = event_file_steps(os.path.join(con["run_dir"], events))
+    check(tags["<version>"] == ["brain.Event:2"], f"version {tags}")
+    every = list(range(1, gui_iterations + 1))
+    for tag in ("total_points", "train_loss_patches/total_loss",
+                "train_loss_patches/l1_loss"):
+        check(tags.get(tag) == every, f"tag {tag} at steps {tags.get(tag)}")
+    for tag in ("val/loss_viewpoint_-_psnr", "test/loss_viewpoint_-_psnr",
+                "val_0/render", "val_0/error", "scene/opacity_histogram"):
+        check(tags.get(tag) == [gui_iterations],
+              f"tag {tag} at steps {tags.get(tag)}")
+    tb = con["tb"]
+    scalar_ms = 1e3 * tb.seconds["add_scalar"] / tb.calls["add_scalar"]
+    per_log_ms = 1e3 * tb.seconds["add_scalar"] / gui_iterations
+    per_eval_ms = 1e3 * (tb.seconds["add_images"]
+                         + tb.seconds["add_histogram"])
+    print(f"[viewer] training with the network viewer at {gw}x{gh}: "
+          f"{frames_served} frames served ({paused_frames} paused), each "
+          f"within {gui_err:.2e} of make_render_fn's (limit {TOL_GUI:.0e});"
+          f" round trip {rtt_paused:.3f} ms paused, {rtt_training:.3f} ms "
+          f"with a step; {ms_client:.3f} ms/iteration with a client, "
+          f"{ms_alone:.3f} without; launches {launches['gui']}")
+    print(f"[viewer] tensorboard: {len(tags) - 1} tags, every record's CRC "
+          f"valid; {scalar_ms:.3f} ms per scalar, {per_log_ms:.3f} ms per "
+          f"log point, {per_eval_ms:.1f} ms of images and histogram per "
+          f"eval ({tb.calls['add_images']} images)")
+    out["gui"] = dict(size=[gw, gh], iterations=gui_iterations,
+                      frames=frames_served, paused_frames=paused_frames,
+                      max_abs_err=gui_err, rtt_paused_ms=round(rtt_paused, 3),
+                      rtt_training_ms=round(rtt_training, 3),
+                      ms_per_iteration_client=round(ms_client, 3),
+                      ms_per_iteration_alone=round(ms_alone, 3),
+                      wall_s=[round(con["wall"], 2), round(alone["wall"], 2)])
+    out["tensorboard"] = dict(tags=len(tags) - 1,
+                              ms_per_scalar=round(scalar_ms, 4),
+                              ms_per_log_point=round(per_log_ms, 3),
+                              ms_per_eval=round(per_eval_ms, 2),
+                              images=tb.calls["add_images"])
+    del con, alone
+
+    # ---- (c) the profiler -------------------------------------------------------
+    prof_dir = os.path.join(work, "profile")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "gaussianavatars_torch.train", "-s", data,
+         "-m", os.path.join(work, "profile_run"), "--bind_to_mesh",
+         "--iterations", str(profile_iterations), "--test_iterations",
+         str(profile_iterations), "--save_iterations",
+         str(profile_iterations), "--checkpoint_iterations",
+         str(profile_iterations), "--no_gui", "--quiet", "--profile_dir",
+         prof_dir, "--device", dev.type], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"train --profile_dir failed: "
+                               f"{res.stderr[-2000:]}")
+    (trace,) = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    trace_bytes = os.path.getsize(os.path.join(prof_dir, trace))
+    with open(os.path.join(prof_dir, trace)) as f:
+        trace_events = json.load(f)["traceEvents"]
+    named = {}
+    for e in trace_events:
+        for kernel in ("blend_fwd_kernel", "blend_bwd_kernel"):
+            if kernel in e.get("name", "") and e.get("cat") == "kernel":
+                named[kernel] = named.get(kernel, 0) + 1
+    check(dev.type != "cuda" or (
+        named.get("blend_fwd_kernel", 0) >= profile_iterations
+        and named.get("blend_bwd_kernel", 0) >= profile_iterations),
+        f"the trace names the kernels {named} times")
+    del trace_events
+    overhead = {}
+    for label, scope in (("plain", None),
+                         ("profiled", os.path.join(work, "profile_in"))):
+        with profile_trace(scope):
+            _, _, pinfo = loop.training(
+                ModelConfig(model_path=os.path.join(work, f"p_{label}"),
+                            **cfg),
+                OptimizationConfig(iterations=profile_iterations,
+                                   position_lr_max_steps=profile_iterations),
+                PipelineConfig(), log_every=1, device=dev)
+        overhead[label] = _steady_ms(pinfo["timeline"])
+    print(f"[viewer] train --profile_dir: {profile_iterations} iterations "
+          f"in {cli_s:.2f} s (process included), trace of "
+          f"{trace_bytes} bytes naming the kernels {named}; in process "
+          f"{overhead['plain']:.3f} ms/iteration, {overhead['profiled']:.3f}"
+          f" ms/iteration profiled")
+    out["profiler"] = dict(iterations=profile_iterations,
+                           cli_s=round(cli_s, 2), trace_bytes=trace_bytes,
+                           kernel_events=named,
+                           ms_per_iteration={k: round(v, 3) for k, v in
+                                             overhead.items()})
+
+    # ---- (d) the FPS benchmarks --------------------------------------------------
+    runs = [("demo", fps_demo, None), ("dataset", fps_dataset, None)]
+    if protocol:
+        runs += [("demo_protocol", (500, 3), None),
+                 ("dataset_protocol", (500, 3), None),
+                 ("demo_4k", (20, 1), (3840, 2160))]
+    out["fps"] = {}
+    for name, (n_iter, rounds), size in runs:
+        argv = ["--n_iter", str(n_iter), "--n_rounds", str(rounds),
+                "--device", dev.type]
+        reset()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        if name.startswith("demo"):
+            argv = ["--point_path", ply] + argv
+            if size is not None:
+                argv += ["--width", str(size[0]), "--height", str(size[1])]
+            fps = {"frame": fps_benchmark_demo.main(argv)}
+            renders = n_iter * rounds + 1
+        else:
+            fps = fps_benchmark_dataset.main(["-m", io_dir] + argv)
+            renders = len(fps) * (n_iter * rounds + 1)
+        peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 20
+                if dev.type == "cuda" else None)
+        launches[f"fps_{name}"] = count()
+        check(launches[f"fps_{name}"] == {"blend_fwd": renders,
+                                          "blend_bwd": 0},
+              f"fps {name} launched {launches[f'fps_{name}']}")
+        out["fps"][name] = dict(
+            n_iter=n_iter, rounds=rounds, size=size,
+            fps={k: [round(x, 2) for x in v] for k, v in fps.items()},
+            ms={k: round(1e3 / float(np.mean(v)), 3)
+                for k, v in fps.items()},
+            peak_mib=None if peak is None else round(peak, 1))
+        print(f"[viewer] fps_benchmark_{name}: {out['fps'][name]}")
+
+    # ---- (e) JPEG views: nvJPEG against PIL's pixels and the plain decoder --
+    fixtures = os.path.join(REPO, "fixtures", "jpeg")
+    dec = NvJpegDecoder(dev)
+    jpeg = {}
+    for name in sorted(f for f in os.listdir(fixtures) if f.endswith(".jpg")):
+        path = os.path.join(fixtures, name)
+        got = loader.read_image(path, jpeg=dec)
+        plain = None if "progressive" in name else read_jpeg(path)
+        stem = path[:-4]
+        if os.path.exists(stem + ".png"):
+            pil = read_png(stem + ".png")
+        else:                   # the digest of PIL's pixels: the plain ones
+            with open(stem + ".pil.json") as f:
+                digest = json.load(f)
+            check(hashlib.sha256(plain.tobytes()).hexdigest()
+                  == digest["sha256"] and list(plain.shape)
+                  == digest["shape"], f"{name}: plain decode != PIL's")
+            pil = plain
+        if pil.ndim == 2:
+            pil = np.repeat(pil[..., None], 3, axis=-1)
+            plain = None if plain is None else pil
+        check(got.shape == pil.shape, f"{name}: nvJPEG {got.shape} vs "
+                                      f"{pil.shape}")
+        d = np.abs(got.astype(np.int64) - pil.astype(np.int64))
+        row = dict(max=int(d.max()), mean=round(float(d.mean()), 4),
+                   share_over_1=round(float((d > 1).mean()), 5))
+        if plain is not None:
+            row["max_vs_plain"] = int(np.abs(
+                got.astype(np.int64) - plain.astype(np.int64)).max())
+        jpeg[name] = row
+        print(f"[viewer] nvJPEG {name}: vs PIL {row}")
+        tol_max, tol_mean = JPEG_LIMITS[name]
+        check(row["max"] <= tol_max and row["mean"] <= tol_mean,
+              f"nvJPEG {name} vs PIL: {row} (limits {tol_max}, "
+              f"{tol_mean})")
+    bench_jpg = os.path.join(fixtures, "bench_802x550.jpg")
+    bench_png = os.path.join(work, "bench_802x550.png")
+    write_png(bench_png, read_jpeg(bench_jpg))
+    timings = {}
+    for label, fn in (("nvjpeg", lambda: loader.read_image(bench_jpg,
+                                                           jpeg=dec)),
+                      ("png", lambda: loader.read_image(bench_png)),
+                      ("plain_jpeg", lambda: loader.read_image(bench_jpg))):
+        fn()
+        reps = 2 if label == "plain_jpeg" else 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        timings[label] = round(1e3 * (time.perf_counter() - t0) / reps, 3)
+    with open(bench_jpg, "rb") as f:
+        raw = f.read()
+    dec.decode(raw)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        dec.decode(raw)
+    torch.cuda.synchronize(dev)
+    timings["nvjpeg_decode_only"] = round(
+        1e3 * (time.perf_counter() - t0) / 10, 3)
+    dec.close()
+    print(f"[viewer] 802x550 view, ms per image: {timings}")
+
+    # ---- (f) training on JPEG views: phase 10's COLMAP scene re-encoded ---
+    src = os.path.join(work, "synthetic", "colmap")
+    dst = os.path.join(work, "synthetic", "colmap_jpeg")
+    os.makedirs(os.path.join(dst, "images"))
+    os.makedirs(os.path.join(dst, "sparse", "0"))
+    for f in ("cameras.bin", "points3D.bin"):
+        shutil.copyfile(os.path.join(src, "sparse", "0", f),
+                        os.path.join(dst, "sparse", "0", f))
+    images = []
+    t0 = time.perf_counter()
+    for im in colmap.read_images_binary(
+            os.path.join(src, "sparse", "0", "images.bin")).values():
+        name = im.name.rsplit(".", 1)[0] + ".jpg"
+        rgb = read_png(os.path.join(src, "images", im.name))[..., :3]
+        with open(os.path.join(dst, "images", name), "wb") as f:
+            f.write(encode_jpeg(np.ascontiguousarray(rgb), 90))
+        images.append(colmap.ColmapImage(im.id, im.qvec, im.tvec,
+                                         im.camera_id, name))
+    colmap.write_images_binary(os.path.join(dst, "sparse", "0",
+                                            "images.bin"), images)
+    encode_s = time.perf_counter() - t0
+    lock, decodes = threading.Lock(), [0]
+    orig_decode = NvJpegDecoder.decode
+
+    def counting_decode(self, data, path="<bytes>"):
+        with lock:
+            decodes[0] += 1
+        return orig_decode(self, data, path)
+
+    NvJpegDecoder.decode = counting_decode
+    try:
+        reset()
+        jcfg = ModelConfig(source_path=dst,
+                           model_path=os.path.join(work, "jpeg_run"),
+                           bind_to_mesh=False, eval=True, sh_degree=3,
+                           white_background=True)
+        writer = SummaryWriter(jcfg.model_path)
+        t0 = time.perf_counter()
+        jmodel, _, jinfo = loop.training(
+            jcfg, OptimizationConfig(iterations=jpeg_iterations,
+                                     position_lr_max_steps=jpeg_iterations),
+            PipelineConfig(), testing_iterations={jpeg_iterations},
+            log_every=1, tb_writer=writer, device=dev)
+        sync()
+        jpeg_wall = time.perf_counter() - t0
+        writer.close()
+    finally:
+        NvJpegDecoder.decode = orig_decode
+    launches["jpeg"] = count()
+    hist = jinfo["history"]
+    test_psnr = jinfo["metrics"][jpeg_iterations]["test"]["psnr"]
+    check(decodes[0] > 0, "no view was decoded by nvJPEG")
+    check(all(np.isfinite(v) for _, v in hist), "non-finite JPEG-run loss")
+    check(launches["jpeg"]["blend_bwd"] == jpeg_iterations,
+          f"the JPEG run launched {launches['jpeg']}")
+    # one view of the run: the loader's nvJPEG view against the plain one
+    from gaussianavatars_torch.data.readers import read_colmap_scene
+
+    cam = read_colmap_scene(dst, eval_split=True).train_cameras[0]
+    dec = NvJpegDecoder(dev)
+    view_d = float(np.abs(loader.load_camera_image(cam, jpeg=dec)
+                          - loader.load_camera_image(cam)).max()) * 255.0
+    dec.close()
+    check(view_d <= JPEG_444_MAX + 1e-3,
+          f"a JPEG view: nvJPEG vs plain {view_d} levels (limit "
+          f"{JPEG_444_MAX})")
+    print(f"[viewer] training on {len(images)} JPEG views (re-encoded in "
+          f"{encode_s:.2f} s): {jpeg_iterations} iterations in "
+          f"{jpeg_wall:.2f} s, {decodes[0]} nvJPEG decodes, EMA loss "
+          f"{hist[0][1]:.5f} -> {hist[-1][1]:.5f}, test PSNR "
+          f"{test_psnr:.3f}; a view nvJPEG vs plain {view_d:.1f} levels; "
+          f"launches {launches['jpeg']}")
+    out["jpeg"] = dict(fixtures=jpeg, ms_per_image=timings,
+                       views=len(images), iterations=jpeg_iterations,
+                       decodes=decodes[0], wall_s=round(jpeg_wall, 2),
+                       ema_loss=[round(hist[0][1], 6), round(hist[-1][1], 6)],
+                       test_psnr=round(test_psnr, 3),
+                       view_max_levels_vs_plain=round(view_d, 3),
+                       n_gaussians=jmodel.num_gaussians)
+    out["launches"] = launches
+    out["k1_err"] = k1_err
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="chip smoke test of the "
+                                                 "port")
+    parser.add_argument("--fps-protocol", action="store_true",
+                        help="phase 11 also runs both FPS benchmarks' "
+                             "reference protocol (500 renders x 3 rounds) "
+                             "and one 3840x2160 demo run")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1665,6 +2501,11 @@ def main() -> int:
         print(json.dumps(dict(what="recovery", **recovery_line,
                               options=options_line)))
         lap("recovery")
+        # ---- 11. the viewers, observability, FPS and JPEG views --------------
+        viewer_line = viewer_phase(dev, workdir, protocol=opts.fps_protocol)
+        errs.append(viewer_line.pop("k1_err"))
+        print(json.dumps(dict(what="viewer", **viewer_line)))
+        lap("viewer")
     finally:
         if saved_env is None:
             os.environ.pop("FLAME_ASSET_DIR", None)
@@ -1716,6 +2557,15 @@ def main() -> int:
                           "plain": REG_STEPS, "regularized": REG_STEPS},
         "recovery_launches": {k: v["blend_fwd"] for k, v in
                               recovery_line["launches"].items()},
+        "viewer_launches": viewer_line["launches"]["viewer"]["blend_fwd"],
+        "gui_launches": viewer_line["launches"]["gui"]["blend_fwd"],
+        "viewer_phase_launches": {k: v["blend_fwd"] for k, v in
+                                  viewer_line["launches"].items()},
+        "viewer_calls": {
+            "viewer_frames": viewer_line["local"]["frames"]
+            + viewer_line["local"]["mesh_frames"],
+            "gui_iterations": viewer_line["gui"]["iterations"],
+            "gui_frames": viewer_line["gui"]["frames"]},
         "recovery_calls": {
             "bound_iterations": BOUND_ITERATIONS,
             "bound_eval_views": recovery_line["bound"]["eval_views"],
@@ -1740,6 +2590,10 @@ def main() -> int:
                              offline_line["launches"].items()},
         "recovery_launches": {k: v["blend_bwd"] for k, v in
                               recovery_line["launches"].items()},
+        "viewer_launches": viewer_line["launches"]["viewer"]["blend_bwd"],
+        "gui_launches": viewer_line["launches"]["gui"]["blend_bwd"],
+        "viewer_phase_launches": {k: v["blend_bwd"] for k, v in
+                                  viewer_line["launches"].items()},
         "max_abs_err": max(e[0] for e in bwd_errs),
         "max_column_rel_err": max(e[1] for e in bwd_errs),
         "pixel_evaluations": walked["blend_bwd"]["pixel_evaluations"],

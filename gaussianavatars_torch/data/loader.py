@@ -2,10 +2,16 @@
 `gaussianavatars_tpu/data/loader.py`; reference train.py:55 and
 scene/__init__.py:31-67).
 
-Images decode on host threads (`utils/png.py`; zlib releases the
-interpreter lock while it inflates) while the device runs the previous
-step, and arrive as float32 [3, H, W] arrays. Delivery follows the
-shuffled epoch order exactly, whatever order the threads finish in.
+Images decode on host threads while the device runs the previous step,
+and arrive as float32 [3, H, W] arrays. A view's format comes from its
+first bytes: a PNG decodes with `utils/png.py` (zlib releases the
+interpreter lock while it inflates); a JPEG with nvJPEG on the card when
+the loader's device is CUDA (`utils/nvjpeg.py`, one decoder, state and
+stream per thread, the pixels copied back to the host once) and with the
+plain decoder (`utils/jpeg.py`) when it is the CPU. A CUDA loader never
+decodes a JPEG on the CPU. Resizing and compositing are the same for both
+formats. Delivery follows the shuffled epoch order exactly, whatever order
+the threads finish in.
 """
 
 from __future__ import annotations
@@ -17,12 +23,15 @@ import threading
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from gaussianavatars_torch.data.cameras import Camera
-from gaussianavatars_torch.utils.png import read_png
+from gaussianavatars_torch.utils.jpeg import decode_jpeg, is_jpeg
+from gaussianavatars_torch.utils.nvjpeg import NvJpegDecoder
+from gaussianavatars_torch.utils.png import decode_png
 
 _CACHE_LOCK = threading.Lock()
-_IMAGE_CACHE: dict = {}     # (path, w, h, bg bytes) -> [3, H, W] float32
+_IMAGE_CACHE: dict = {}     # (path, w, h, bg bytes, plain?) -> [3, H, W]
 _CACHE_BYTES = [0]
 _CACHE_BUDGET = int(float(os.environ.get("GA_IMAGE_CACHE_GB", "4"))
                     * (1 << 30))
@@ -103,8 +112,28 @@ def _resize(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return img
 
 
+def jpeg_decoder(device: str | torch.device = "cpu"):
+    """The JPEG decoder of a loader on `device`: an nvJPEG decoder for
+    CUDA (one per thread), None (the plain decoder) for the CPU."""
+    device = torch.device(device)
+    return NvJpegDecoder(device) if device.type == "cuda" else None
+
+
+def read_image(path: str, jpeg=None) -> np.ndarray:
+    """Decode a PNG or a JPEG file by its first bytes: uint8 [H, W] or
+    [H, W, C]. A JPEG goes to `jpeg` (an `NvJpegDecoder`) when given, else
+    to the plain decoder; any other format raises naming the file."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if is_jpeg(buf):
+        return jpeg.read(buf, path) if jpeg is not None else \
+            decode_jpeg(buf, path)
+    return decode_png(buf, path)
+
+
 def load_camera_image(cam: Camera, resolution_arg: int = -1,
-                      resolution_scale: float = 1.0) -> np.ndarray:
+                      resolution_scale: float = 1.0,
+                      jpeg=None) -> np.ndarray:
     """Decode, resize and composite one view: [3, H, W] float32.
 
     Follows reference scene/__init__.py:38-63: RGBA images are composited
@@ -112,16 +141,17 @@ def load_camera_image(cam: Camera, resolution_arg: int = -1,
     the size follows the 1600 px auto-cap (`Camera.resolution`). Decoded
     views stay in host memory (the reference keeps every image resident)
     under a byte budget, GA_IMAGE_CACHE_GB (default 4), and the whole cache
-    is dropped when it would overflow.
+    is dropped when it would overflow. `jpeg` decodes JPEG views (see
+    `read_image`); a gray JPEG becomes RGB as a gray PNG does.
     """
     w, h = cam.resolution(resolution_arg, resolution_scale)
-    key = (cam.image_path, w, h, cam.bg.tobytes())
+    key = (cam.image_path, w, h, cam.bg.tobytes(), jpeg is None)
     with _CACHE_LOCK:
         hit = _IMAGE_CACHE.get(key)
     if hit is not None:
         return hit
 
-    raw = read_png(cam.image_path)
+    raw = read_image(cam.image_path, jpeg)
     if raw.shape[:2] != (h, w):
         raw = _resize(raw if raw.ndim == 3 else raw[..., None], w, h)
     arr = raw.astype(np.float32) / 255.0
@@ -155,13 +185,14 @@ class CameraLoader:
     def __init__(self, cameras: list[Camera], resolution_arg: int = -1,
                  shuffle: bool = True, prefetch: int = 4,
                  num_threads: int = 4, seed: int = 0,
-                 loop: bool = True):
+                 loop: bool = True, device: str | torch.device = "cpu"):
         if not cameras:
             raise ValueError("CameraLoader needs at least one camera")
         self.cameras = cameras
         self.resolution_arg = resolution_arg
         self.shuffle = shuffle
         self.loop = loop
+        self.device = torch.device(device)
         self.rng = random.Random(seed)
         self._queue: queue.Queue = queue.Queue(maxsize=max(prefetch,
                                                            num_threads))
@@ -193,6 +224,14 @@ class CameraLoader:
             return seq, idx
 
     def _worker(self):
+        jpeg = jpeg_decoder(self.device)        # this thread's own
+        try:
+            self._serve(jpeg)
+        finally:
+            if jpeg is not None:
+                jpeg.close()
+
+    def _serve(self, jpeg):
         while not self._stop.is_set():
             drawn = self._next_index()
             if drawn is None:
@@ -200,7 +239,8 @@ class CameraLoader:
             seq, idx = drawn
             cam = self.cameras[idx]
             try:
-                item = (seq, cam, load_camera_image(cam, self.resolution_arg))
+                item = (seq, cam, load_camera_image(
+                    cam, self.resolution_arg, jpeg=jpeg))
             except Exception as exc:   # handed to the consumer, raised there
                 item = (seq, cam, exc)
             while not self._stop.is_set():
@@ -230,7 +270,14 @@ class CameraLoader:
             t.join(timeout=2.0)
 
 
-def iterate_once(cameras: list[Camera], resolution_arg: int = -1):
-    """Sequential iteration (eval sweeps)."""
-    for cam in cameras:
-        yield cam, load_camera_image(cam, resolution_arg)
+def iterate_once(cameras: list[Camera], resolution_arg: int = -1,
+                 device: str | torch.device = "cpu"):
+    """Sequential iteration (eval sweeps); JPEG views decode as a loader
+    on `device` decodes them."""
+    jpeg = jpeg_decoder(device)
+    try:
+        for cam in cameras:
+            yield cam, load_camera_image(cam, resolution_arg, jpeg=jpeg)
+    finally:
+        if jpeg is not None:
+            jpeg.close()

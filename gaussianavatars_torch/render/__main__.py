@@ -84,7 +84,7 @@ def render_set(model_cfg: ModelConfig, pipe_cfg: PipelineConfig, name: str,
     t_start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
         for idx, (cam, gt) in enumerate(
-                iterate_once(cameras, model_cfg.resolution)):
+                iterate_once(cameras, model_cfg.resolution, device=dev)):
             t0 = time.perf_counter()
             w, h = cam.resolution(model_cfg.resolution)
             if (w, h) not in render_fns:

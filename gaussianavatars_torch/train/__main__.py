@@ -7,14 +7,22 @@ reference train.py:316-353):
 The flags are the reference's (the ModelConfig, OptimizationConfig and
 PipelineConfig groups, with --convert_SHs_python, --compute_cov3D_python
 and --debug; --test_iterations, --save_iterations, --checkpoint_iterations,
---start_checkpoint, --debug_from, --detect_anomaly, --quiet, --seed), plus
---device (default cuda; the run raises when no GPU is present unless it is
-cpu). --interval (default 60000) is the iteration interval of the tests,
-saves and checkpoints not listed explicitly. --detect_anomaly runs the
-training under `torch.autograd.set_detect_anomaly(True)`. The network
-viewer, the profiler and multi-host flags of the JAX package's script
-(--ip, --port, --no_gui, --profile_dir, --distributed) are not accepted:
-they are not ported.
+--start_checkpoint, --debug_from, --detect_anomaly, --quiet, --seed, --ip,
+--port, --no_gui, --profile_dir), plus --device (default cuda; the run
+raises when no GPU is present unless it is cpu). --interval (default
+60000) is the iteration interval of the tests, saves and checkpoints not
+listed explicitly. --detect_anomaly runs the training under
+`torch.autograd.set_detect_anomaly(True)`.
+
+The run serves the network viewer (`viewer/network_gui.py`, for
+`python -m gaussianavatars_torch.remote_viewer`) on --ip:--port (default
+127.0.0.1:6009) unless --no_gui is given; an address that cannot be bound
+is printed and the run trains without the viewer. It always logs to a
+tensorboard event file `events.out.tfevents.*` in the model directory
+(`utils/tensorboard.py`). --profile_dir DIR records the whole run with
+`torch.profiler` and writes a Chrome trace there: meant for short runs.
+The JAX script's --distributed is not accepted: multi-device training is
+not ported.
 """
 
 from __future__ import annotations
@@ -57,6 +65,13 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--no_gui", action="store_true",
+                        help="do not serve the network viewer")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler Chrome trace of the "
+                             "run here")
     args = parser.parse_args(argv)
 
     if args.interval > args.iterations:
@@ -71,6 +86,9 @@ def main(argv=None):
     pipe_cfg = PipelineConfig.extract(args)
 
     from gaussianavatars_torch.train.loop import training
+    from gaussianavatars_torch.utils.system import profile_trace
+    from gaussianavatars_torch.utils.tensorboard import SummaryWriter
+    from gaussianavatars_torch.viewer.network_gui import NetworkGUI
 
     with contextlib.ExitStack() as stack:
         if args.quiet:
@@ -79,12 +97,28 @@ def main(argv=None):
         if args.detect_anomaly:
             stack.enter_context(torch.autograd.set_detect_anomaly(True))
         print("Optimizing " + model_cfg.model_path)
-        training(model_cfg, opt_cfg, pipe_cfg,
-                 testing_iterations=set(tests), saving_iterations=set(saves),
-                 checkpoint_iterations=set(checkpoints),
-                 start_checkpoint=args.start_checkpoint,
-                 debug_from=args.debug_from, seed=args.seed,
-                 device=args.device)
+        tb_writer = SummaryWriter(model_cfg.model_path)
+        stack.callback(tb_writer.close)
+        gui = None
+        if not args.no_gui:
+            gui = NetworkGUI(args.ip, args.port)
+            try:
+                gui.init()
+            except OSError as exc:
+                print(f"[warn] GUI server unavailable on {args.ip}:"
+                      f"{args.port}: {exc}")
+                gui = None
+            else:
+                stack.callback(gui.close)
+        with profile_trace(args.profile_dir):
+            training(model_cfg, opt_cfg, pipe_cfg,
+                     testing_iterations=set(tests),
+                     saving_iterations=set(saves),
+                     checkpoint_iterations=set(checkpoints),
+                     start_checkpoint=args.start_checkpoint,
+                     tb_writer=tb_writer, gui=gui,
+                     debug_from=args.debug_from, seed=args.seed,
+                     device=args.device)
         print("\nTraining complete.")
 
 

@@ -3,9 +3,11 @@ reference train.py:35-314): the render and the train step, and the host
 loop around them (`training`: data, the xyz schedule, the SH warmup,
 densification, opacity resets, evaluation, saving and checkpoints).
 
-Left out, as TPU devices: capacity and level-bucket growth, the overflow
-probes and the asynchronous precompilation. The tensorboard writer and the
-network viewer are not ported yet; `training` raises when given either.
+`training` serves the network viewer between steps (`gui_poll`, a
+`viewer/network_gui.py` server) and logs to a tensorboard writer
+(`utils/tensorboard.py`) as the JAX loop does. Left out, as TPU devices:
+capacity and level-bucket growth, the overflow probes and the asynchronous
+precompilation.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import json
 import os
 import time
+import traceback
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -343,6 +346,76 @@ def _after_surgery(model, state: StepState, adam_g: AdamState) -> StepState:
         grad_accum=model.xyz_gradient_accum, denom=model.denom)
 
 
+def gui_poll(gui, model, state: StepState, flame_fixed: dict,
+             pipe_cfg: PipelineConfig, iteration: int, total_iterations: int,
+             render_fns: dict) -> None:
+    """Serve the network viewer between two steps (reference train.py:
+    62-102, the JAX package's `gui_poll`): accept a waiting client, then
+    answer its requests until it lets training go on (`do_training`, and
+    the run not at its end unless it asks to leave, `keep_alive` false).
+
+    A request with a camera is rendered by `make_render_fn` from `state`
+    at the client's size and timestep on a white background, with the
+    dataset's FLAME parameters if it asks for `use_original_mesh`; with
+    `show_mesh` the mesh of `render/mesh_renderer.py::rasterize_mesh` is
+    blended over it at `mesh_opacity`. The frame goes to the host once,
+    as the wire's uint8, with the stats `num_timesteps` and `num_points`.
+    An error is printed with its traceback and the connection dropped;
+    training goes on."""
+    if gui.conn is None:
+        gui.try_connect()
+    bound = model.binding is not None
+    dev = model.device
+    while gui.conn is not None:
+        try:
+            cam, msg = gui.receive()
+            if cam is not None:
+                params = cam.to_params(device=dev)
+                key = ("gui", cam.width, cam.height, model.active_sh_degree)
+                if key not in render_fns:
+                    render_fns[key] = make_render_fn(
+                        model, pipe_cfg, cam.width, cam.height,
+                        model.active_sh_degree)
+                flame_full = ({**flame_fixed, **state.flame_tr} if bound
+                              else {})
+                if bound and msg.get("use_original_mesh") and \
+                        model.flame_param_orig is not None:
+                    flame_full = {k: torch.as_tensor(
+                        np.asarray(v, np.float32), device=dev)
+                        for k, v in model.flame_param_orig.items()}
+                timestep = int(cam.timestep)
+                image = None
+                if msg.get("show_splatting", True):
+                    image = render_fns[key](
+                        state.params, flame_full, model.binding,
+                        camera_arrays(params),
+                        torch.ones(3, dtype=torch.float32, device=dev),
+                        timestep).image.clamp(0.0, 1.0)
+                if bound and msg.get("show_mesh"):
+                    from gaussianavatars_torch.render.mesh_renderer import (
+                        rasterize_mesh,
+                    )
+
+                    with torch.no_grad():
+                        verts = model.verts_at(flame_full, timestep)
+                    rgb, alpha, _, _ = rasterize_mesh(
+                        verts[0], model.flame_model.faces, params)
+                    rgb, alpha = rgb.permute(2, 0, 1), alpha[None]
+                    op = float(msg.get("mesh_opacity", 0.5))
+                    image = rgb if image is None else (
+                        rgb * alpha * op
+                        + image * (alpha * (1 - op) + (1 - alpha)))
+                gui.send(image, {"num_timesteps": model.num_timesteps,
+                                 "num_points": model.num_gaussians})
+            if msg["do_training"] and (iteration < total_iterations
+                                       or not msg["keep_alive"]):
+                break
+        except Exception as exc:        # the viewer must not stop training
+            print(f"[gui] dropping viewer connection after error: {exc!r}")
+            traceback.print_exc()
+            gui.drop()
+
+
 def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
              pipe_cfg: PipelineConfig, testing_iterations=(),
              saving_iterations=(), checkpoint_iterations=(),
@@ -361,7 +434,12 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     `saving_iterations`, evaluates the val and test splits at
     `testing_iterations` and writes `chkpnt<N>.npz` at
     `checkpoint_iterations`. `start_checkpoint` resumes from a checkpoint
-    of either package. From iteration `debug_from` on (reference
+    of either package. `gui` (a `viewer/network_gui.py::NetworkGUI` that
+    is listening) is polled at the top of every iteration (`gui_poll`).
+    `tb_writer` (`utils/tensorboard.py::SummaryWriter` or tensorboardX's)
+    receives the losses and the number of Gaussians at every log point,
+    and at each evaluation its metrics, render and error images and the
+    opacity histogram, under the JAX loop's tags. From iteration `debug_from` on (reference
     train.py --debug_from) `pipe_cfg.debug` is set; with it set, a
     non-finite loss read at a log point writes the state to
     `snapshot_fw_<iteration>.npz` in the model directory and raises
@@ -379,11 +457,6 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     "metrics" {iteration: evaluate_splits result}, "densify_s" [seconds of
     each densification] and "summary" (written to run_summary.json).
     """
-    if tb_writer is not None:
-        raise NotImplementedError("tensorboard logging is not ported yet")
-    if gui is not None:
-        raise NotImplementedError("the network viewer (gui_poll) is not "
-                                  "ported yet")
     from gaussianavatars_torch.convert import load_checkpoint
     from gaussianavatars_torch.data.loader import CameraLoader
     from gaussianavatars_torch.data.scene import Scene
@@ -420,11 +493,11 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                     if k not in flame_tr} if bound else {})
 
     loader = CameraLoader(scene.get_train_cameras(),
-                          resolution_arg=model_cfg.resolution)
+                          resolution_arg=model_cfg.resolution, device=dev)
     state = StepState(params=model.params, flame_tr=flame_tr, mu=mu, nu=nu,
                       count=count, max_radii2d=model.max_radii2d,
                       grad_accum=model.xyz_gradient_accum, denom=model.denom)
-    step_fns = {}
+    step_fns, gui_fns = {}, {}
     gt_cache, gt_bytes = {}, 0     # device-resident ground truth
     bg_cache = {}
     ema_loss, prev_losses = None, None
@@ -434,6 +507,9 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
 
     try:
         for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
+            if gui is not None:
+                gui_poll(gui, model, state, flame_fixed, pipe_cfg, iteration,
+                         opt_cfg.iterations, gui_fns)
             if debug_from >= 0 and iteration >= debug_from:
                 pipe_cfg.debug = True
             xyz_lr = float(expon_lr(
@@ -486,6 +562,14 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                             else 0.4 * total + 0.6 * ema_loss)
                 history.append((iteration, ema_loss))
                 timeline.append((iteration, time.time()))
+                if tb_writer is not None:
+                    values = torch.stack([v.reshape(()) for v in
+                                          src.values()]).tolist()
+                    for k, v in zip(src, values):
+                        tb_writer.add_scalar(f"train_loss_patches/{k}_loss",
+                                             v, iteration)
+                    tb_writer.add_scalar("total_points",
+                                         model.num_gaussians, iteration)
             if iteration % PRINT_EVERY == 0 or iteration == opt_cfg.iterations:
                 print(f"[ITER {iteration}] loss {ema_loss:.7f}, "
                       f"{model.num_gaussians} Gaussians")
@@ -535,10 +619,20 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
 
             if iteration in testing_iterations:
                 metrics[iteration] = evaluate_splits(
-                    model, scene, model_cfg, pipe_cfg, state, flame_fixed)
+                    model, scene, model_cfg, pipe_cfg, state, flame_fixed,
+                    tb_writer=tb_writer, iteration=iteration)
                 for split, m in metrics[iteration].items():
                     print(f"[ITER {iteration}] Evaluating {split}: "
                           + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
+                    if tb_writer is not None:
+                        for k, v in m.items():
+                            tb_writer.add_scalar(
+                                f"{split}/loss_viewpoint - {k}", v, iteration)
+                if tb_writer is not None:
+                    tb_writer.add_histogram(
+                        "scene/opacity_histogram",
+                        torch.sigmoid(state.params.opacity[:, 0]).cpu()
+                        .numpy(), iteration)
 
             if iteration in checkpoint_iterations:
                 print(f"[ITER {iteration}] Saving Checkpoint")
@@ -603,13 +697,19 @@ def _eval_lpips(device: torch.device):
 @torch.no_grad()
 def evaluate_splits(model, scene, model_cfg: ModelConfig,
                     pipe_cfg: PipelineConfig, state: StepState,
-                    flame_fixed: dict) -> dict:
+                    flame_fixed: dict, tb_writer=None, iteration: int = 0,
+                    num_vis_img: int = 10) -> dict:
     """Mean L1, PSNR, SSIM and, when the LPIPS weights exist, LPIPS of the
     val (novel view) and test (self-reenactment) splits, rendered with the
     state's parameters against the clamped ground truth (reference
     train.py:256-314). Returns {split: {"l1_loss", "psnr", "ssim"[,
-    "lpips"]}} for the splits that have cameras."""
+    "lpips"]}} for the splits that have cameras.
+
+    With `tb_writer`, every (len(cameras) // num_vis_img)-th view's render
+    and error map (`utils/image.py::error_map`) are written as images
+    `<split>_<k>/render` and `<split>_<k>/error` at step `iteration`."""
     from gaussianavatars_torch.data.loader import iterate_once
+    from gaussianavatars_torch.utils.image import error_map
 
     bound = model.binding is not None
     flame_full = {**flame_fixed, **state.flame_tr} if bound else {}
@@ -622,7 +722,9 @@ def evaluate_splits(model, scene, model_cfg: ModelConfig,
         lpips_fn = _eval_lpips(dev)
         render_fns = {}
         l1s, psnrs, ssims, lpipses = [], [], [], []
-        for cam, gt in iterate_once(cameras, model_cfg.resolution):
+        vis_every, vis_ct = max(len(cameras) // num_vis_img, 1), 0
+        for idx, (cam, gt) in enumerate(
+                iterate_once(cameras, model_cfg.resolution, device=dev)):
             w, h = cam.resolution(model_cfg.resolution)
             if (w, h) not in render_fns:
                 render_fns[w, h] = make_render_fn(model, pipe_cfg, w, h,
@@ -638,6 +740,14 @@ def evaluate_splits(model, scene, model_cfg: ModelConfig,
             ssims.append(ssim(img, gt_t))
             if lpips_fn is not None:
                 lpipses.append(lpips_fn(img, gt_t)[0])
+            if tb_writer is not None and idx % vis_every == 0:
+                img_h, gt_h = img.cpu().numpy(), gt_t.cpu().numpy()
+                tb_writer.add_images(f"{split}_{vis_ct}/render", img_h[None],
+                                     global_step=iteration)
+                tb_writer.add_images(f"{split}_{vis_ct}/error",
+                                     error_map(img_h, gt_h)[None],
+                                     global_step=iteration)
+                vis_ct += 1
         results[split] = {
             "l1_loss": float(torch.stack(l1s).mean()),
             "psnr": float(torch.stack(psnrs).mean()),

@@ -3,10 +3,11 @@
 The port's counterpart of the PIL and libpng (`gaussianavatars_tpu/native`)
 image IO of the JAX loader (`gaussianavatars_tpu/data/loader.py:47-74`).
 The GPU host the port runs on has numpy but no PIL and no libpng headers,
-so the port reads and writes its images with this module and nothing
-else; any other format raises an error that names the file. `image_size`
-also reads the size of a JPEG from its header (COLMAP scenes), which this
-module does not decode.
+so the port reads and writes its PNGs with this module; `read_png` raises
+naming the file on any other format. JPEG views decode elsewhere
+(`utils/jpeg.py` on the CPU, `utils/nvjpeg.py` on the card; the loader's
+`read_image` picks by the file's first bytes). `image_size` reads the
+size of a PNG or a JPEG from its header.
 
 Supported: non-interlaced PNGs of bit depth 8, gray (color type 0), RGB (2)
 and RGBA (6), with any of the five row filters. An image whose rows use
@@ -112,9 +113,8 @@ def _jpeg_size(path: str, buf: bytes) -> tuple[int, int]:
 
 def image_size(path: str) -> tuple[int, int]:
     """(width, height) of a PNG (its IHDR chunk) or a JPEG (its first
-    SOF0/1/2 segment) from the file's header, without decoding it. Only
-    the PNGs `read_png` reads decode; other formats raise naming the
-    file."""
+    SOF0/1/2 segment) from the file's header, without decoding it; other
+    formats raise naming the file."""
     with open(path, "rb") as f:
         head = f.read(3)
         if head.startswith(b"\xff\xd8\xff"):

@@ -13,8 +13,11 @@
     1e-6), 5 iterations of unbound `training` agree with JAX's as the
     loop tests do (the EMA loss history within rtol 1e-3), and the `train`
     entry point trains from the scene's points;
-  * a scene of JPEG views reads, and its first view raises naming the
-    file when the loader reaches it.
+  * a scene of JPEG views reads; on the CPU its first view decodes (the
+    plain decoder, `utils/jpeg.py`) to the JAX loader's view within 1/255,
+    while a CUDA loader without nvJPEG raises naming the file (it never
+    decodes on the CPU); 5 unbound iterations on the JPEG scene agree with
+    JAX's as the PNG scene's do.
 """
 
 import math
@@ -29,6 +32,9 @@ from gaussianavatars_tpu.config import ModelConfig as JaxModelConfig
 from gaussianavatars_tpu.config import OptimizationConfig as JaxOpt
 from gaussianavatars_tpu.config import PipelineConfig as JaxPipeline
 from gaussianavatars_tpu.data import colmap as jcolmap
+from gaussianavatars_tpu.data.loader import (
+    load_camera_image as jax_load_camera_image,
+)
 from gaussianavatars_tpu.data.readers import (
     read_colmap_scene as jax_read_colmap_scene,
 )
@@ -268,8 +274,9 @@ def test_scene_init_matches_jax(scene_dir, tmp_path):
     assert len(tscene.get_test_cameras()) == 2
 
 
-def test_unbound_training_matches_jax(tmp_path):
-    data = _write_scene(str(tmp_path / "scene"), "bin")
+@pytest.mark.parametrize("ext", [".png", ".jpg"])
+def test_unbound_training_matches_jax(tmp_path, ext):
+    data = _write_scene(str(tmp_path / "scene"), "bin", ext=ext)
     schedule = dict(iterations=5, densify_from_iter=100,
                     opacity_reset_interval=1000, position_lr_max_steps=5)
     _, jstate, jinfo = jax_training(
@@ -309,11 +316,30 @@ def test_train_cli_on_colmap_scene(tmp_path):
     assert len(end["x"]) == N_POINTS and "binding" not in end
 
 
-def test_jpeg_view_raises_with_its_name(tmp_path):
+def test_jpeg_view_raises_with_its_name(tmp_path, monkeypatch):
+    """The JPEG scene's first view decodes on the CPU to the JAX loader's
+    view; a CUDA loader without nvJPEG raises naming it."""
+    from gaussianavatars_tpu.data.cameras import Camera as JaxCamera
+    from gaussianavatars_torch.data.loader import iterate_once
+    from gaussianavatars_torch.utils import nvjpeg
+
     data = _write_scene(str(tmp_path), "bin", ext=".jpg")
     info = read_colmap_scene(data)
     cam = info.train_cameras[0]
     assert (cam.width, cam.height) == (W, H)
     assert cam.image_path.endswith(".jpg")
+    got = load_camera_image(cam)
+    ref = jax_load_camera_image(JaxCamera(
+        uid=cam.uid, R=cam.R, T=cam.T, fovx=cam.fovx, fovy=cam.fovy,
+        width=cam.width, height=cam.height, image_path=cam.image_path,
+        bg=cam.bg))
+    assert got.shape == ref.shape == (3, H, W)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1.0 / 255 + 1e-6)
     with pytest.raises(PNGError, match=f"{cam.image_path}.*JPEG"):
-        load_camera_image(cam)
+        from gaussianavatars_torch.utils.png import read_png
+
+        read_png(cam.image_path)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setattr(nvjpeg, "_LIB", {})
+    with pytest.raises(nvjpeg.NvJpegError, match=cam.image_path):
+        next(iterate_once([cam], device="cuda"))

@@ -24,7 +24,11 @@ from gaussianavatars_tpu.train.loop import (
     make_render_fn as jax_make_render_fn,
 )
 from gaussianavatars_torch import benchmark as tbench
-from gaussianavatars_torch import fps_benchmark_demo, kernels
+from gaussianavatars_torch import (
+    fps_benchmark_dataset,
+    fps_benchmark_demo,
+    kernels,
+)
 from gaussianavatars_torch import metrics as metrics_cli
 from gaussianavatars_torch.metrics_lib.lpips import LPIPS
 from gaussianavatars_torch.models.gaussians import GaussianModel
@@ -118,7 +122,12 @@ def test_entry_points_raise_without_gpu(tmp_path):
     with pytest.raises(RuntimeError):
         tbench.make_bench_scene(n=10)
     with pytest.raises(RuntimeError):
+        fps_benchmark_demo.main(["--point_path", str(tmp_path / "p.ply"),
+                                 "--n_iter", "1", "--n_rounds", "1"])
+    with pytest.raises(RuntimeError):
         render_cli.main(["-m", str(tmp_path)])
+    with pytest.raises(RuntimeError):
+        fps_benchmark_dataset.main(["-m", str(tmp_path)])
     with pytest.raises(RuntimeError):
         metrics_cli.main(["-m", str(tmp_path)])
     with pytest.raises(RuntimeError):
@@ -145,7 +154,11 @@ def test_kernel_build_raises_without_nvcc():
 
 
 FORBIDDEN = ("jax", "jaxlib", "gaussianavatars_tpu", "tests", "PIL", "tqdm",
-             "tensorboardX")
+             "tensorboardX", "tensorboard", "dearpygui")
+# imported only inside the function that needs it: the viewers' dearpygui
+# shells (`main` of local_viewer.py and remote_viewer.py), which the hosts
+# without a display never run
+SHELLS_ONLY = {"dearpygui": ("local_viewer.py", "remote_viewer.py")}
 # the offline tools' modules, the COLMAP reader and the quality protocols,
 # which the GPU host must import as well
 NEW_MODULES = ("gaussianavatars_torch.metrics",
@@ -155,13 +168,23 @@ NEW_MODULES = ("gaussianavatars_torch.metrics",
                "gaussianavatars_torch.render.mesh_renderer",
                "gaussianavatars_torch.data.colmap",
                "gaussianavatars_torch.examples.bound_avatar_recovery",
-               "gaussianavatars_torch.examples.synthetic_recovery")
+               "gaussianavatars_torch.examples.synthetic_recovery",
+               "gaussianavatars_torch.viewer.orbit_camera",
+               "gaussianavatars_torch.viewer.network_gui",
+               "gaussianavatars_torch.viewer.remote_client",
+               "gaussianavatars_torch.local_viewer",
+               "gaussianavatars_torch.remote_viewer",
+               "gaussianavatars_torch.fps_benchmark_dataset",
+               "gaussianavatars_torch.utils.tensorboard",
+               "gaussianavatars_torch.utils.jpeg",
+               "gaussianavatars_torch.utils.nvjpeg")
 
 
 def test_port_imports_no_jax():
     """Importing every module of the port loads none of FORBIDDEN beyond
     what numpy and torch load themselves (the GPU host has no JAX, PIL,
-    tqdm or tensorboardX; this host's torch imports tqdm)."""
+    tqdm, tensorboardX or dearpygui, and maybe no tensorboard; this host's
+    torch imports tqdm)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import numpy, torch\n"
@@ -183,30 +206,49 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
 
 
-def _imported_names(path):
+def _imported_names(path, in_functions=True):
+    """The modules the file's import statements name; without
+    `in_functions`, only the statements outside any function."""
     with open(path) as f:
         tree = ast.parse(f.read())
     names = []
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names += [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
+
+    def visit(node, in_function):
+        if isinstance(node, ast.Import) and (in_functions or not in_function):
+            names.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and (in_functions
+                                                   or not in_function):
             names.append("." if node.level else node.module or "")
+        inner = in_function or isinstance(
+            node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            visit(child, inner)
+
+    visit(tree, False)
     return names
 
 
 def test_port_sources_import_no_jax():
     """No import statement of the port, at module level or inside a
-    function, names a module of FORBIDDEN."""
+    function, names a module of FORBIDDEN, except dearpygui inside the
+    viewers' shells (SHELLS_ONLY)."""
     sources = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "gaussianavatars_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(sources) >= 35
     for name in NEW_MODULES:
         assert os.path.join(REPO, *name.split(".")) + ".py" in sources, name
+    shells = set()
     for path in sources:
+        top_level = _imported_names(path, in_functions=False)
         for name in _imported_names(path):
-            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+            root = name.split(".")[0]
+            if os.path.basename(path) in SHELLS_ONLY.get(root, ()) and \
+                    name not in top_level:
+                shells.add(os.path.basename(path))
+                continue
+            assert root not in FORBIDDEN, (path, name)
+    assert shells == set(SHELLS_ONLY["dearpygui"])
 
 
 def test_chip_smoke_imports_no_jax():

@@ -147,13 +147,54 @@ def test_train_needs_a_gpu_unless_asked(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "o"),
                         "--detect_anomaly", "--debug_from", "1"])
-    for flag in ("--no_gui", "--distributed", "--profile_dir"):
+    # the viewer and profiler flags are accepted now (and need the GPU);
+    # multi-device training is still not ported
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "o"),
+                        "--no_gui", "--profile_dir", str(tmp_path / "p"),
+                        "--port", "0"])
+    for argv in (["--distributed"], ["--profile_dir"]):
         with pytest.raises(SystemExit):
-            train_cli.main(["-s", str(tmp_path), flag])
+            train_cli.main(["-s", str(tmp_path)] + argv)
+
+
+class _Hook:
+    """Records every call made on it."""
+
+    def __init__(self):
+        self.calls = []
+        self.conn = None
+
+    def __getattr__(self, name):
+        return lambda *a, **k: self.calls.append((name, a, k))
 
 
 @pytest.mark.parametrize("arg", ["tb_writer", "gui"])
-def test_unported_hooks_raise(arg, tmp_path):
-    with pytest.raises(NotImplementedError):
-        training(ModelConfig(model_path=str(tmp_path)), OptimizationConfig(),
-                 PipelineConfig(), device="cpu", **{arg: object()})
+def test_unported_hooks_raise(arg, runs, tmp_path, monkeypatch):
+    """The tensorboard writer and the network viewer, which `training`
+    refused before they were ported, are used: the writer gets the losses
+    and the number of Gaussians at every log point, the viewer is polled
+    at the top of every iteration. A hook without their methods raises."""
+    monkeypatch.setenv("FLAME_ASSET_DIR", runs["assets"])
+    hook = _Hook()
+    training(ModelConfig(**_cfg(runs["data"], str(tmp_path / "o"))),
+             OptimizationConfig(**dict(SCHEDULE, iterations=2)),
+             PipelineConfig(tile_size=16), log_every=1, device="cpu",
+             **{arg: hook})
+    names = [c[0] for c in hook.calls]
+    if arg == "gui":
+        assert names == ["try_connect", "try_connect"]
+    else:
+        steps = [c[1][2] for c in hook.calls if c[1][0] == "total_points"]
+        assert steps == [1, 2]
+        assert ("add_scalar", ("train_loss_patches/total_loss",
+                               pytest.approx(runs["info"]["history"][0][1],
+                                             rel=1e-3), 1), {}) in \
+            hook.calls
+    with pytest.raises(AttributeError):
+        training(ModelConfig(model_path=str(tmp_path / "x"), **{
+            k: v for k, v in _cfg(runs["data"], "").items()
+            if k != "model_path"}),
+            OptimizationConfig(**dict(SCHEDULE, iterations=1)),
+            PipelineConfig(tile_size=16), log_every=1, device="cpu",
+            **{arg: object()})
