@@ -108,7 +108,24 @@ Phases (any failure exits non-zero before the result line):
      here: the GPU host has no encoder) and trained 30 iterations, every
      view decoded by nvJPEG in the loader's threads. `--fps-protocol` adds
      both benchmarks' reference protocol (500 renders x 3 rounds) and one
-     3840x2160 demo run with its peak device memory.
+     3840x2160 demo run with its peak device memory;
+ 12. training across ranks and subjects (`parallel_phase`): two ranks on
+     the one card over gloo (NCCL takes no two ranks on one card), spawned
+     processes: 8 renders of the bench avatar at 802x550 through
+     `parallel.make_sharded_render`, each rank's image against
+     `make_render_fn`'s (max|d| <= 1e-5), one `make_sharded_train_step`
+     with render_parallel=2 against the one-device step (every gradient
+     leaf max|d| / max|single| <= 2e-4, losses 1e-5), K1 (<= 1e-3) and K2
+     (<= 5e-4 per column) against their plain versions on each rank's slab
+     of the bench stream, one K1 per render and one K1 and one K2 per step
+     on each rank; `python -m gaussianavatars_torch.train --distributed`
+     with torchrun's variables, NCCL and a world of 1 for 30 iterations on
+     phase 8's dataset; `train.multisubject.MultiSubjectTrainer` with the
+     bench avatars of seeds 0 and 1 in turn on one rank for 20 iterations
+     (every Gaussian cloned or split at 10), each subject within 4x a solo
+     run's run-to-run drift of its solo run (the gather's `index_add_` is
+     not bit-deterministic on the card), its ms per iteration beside the
+     solo run's, and `bench_multisubject`'s steps/s and efficiency.
 The `kernels` line is the last but one, the card's name and power limit
 the line before it. The last line is {"ok": true, "device": {...}}.
 Nothing here imports JAX.
@@ -2101,6 +2118,381 @@ def viewer_phase(dev, work, frames=VIEWER_FRAMES, mesh_frames=MESH_FRAMES,
     return out
 
 
+PARALLEL_RENDERS = 8          # phase 12: sharded renders (2 per timestep)
+NCCL_ITERATIONS = 30          # phase 12: `train --distributed`, a world of 1
+MULTI_ITERATIONS = 20         # phase 12: two subjects, densified at 10
+BENCH_MULTI_ITERS = 20        # phase 12: bench_multisubject's iterations
+TOL_SHARDED_IMAGE = 1e-5      # sharded vs one-device render, max|d|
+TOL_SHARDED_GRAD = 2e-4       # sharded vs one-device step, per leaf
+DRIFT_MULTIPLE = 4            # two subjects vs solo: gap <= 4 x solo drift
+RANK_TIMEOUT_S = 300
+
+
+def _kernel_errors(inst, ranges, args, seed):
+    """K1's max|d|, K2's max|d| and K2's largest per-column max|d| /
+    max|plain| against their plain versions on one stream (random
+    cotangents from `seed`)."""
+    from gaussianavatars_torch.ops import tile_blend
+
+    color, trans = tile_blend.blend_image_cuda(inst, ranges, *args)
+    ref = tile_blend.blend_image_plain(inst, ranges, *args)
+    k1 = max(float((color - ref[0]).abs().max()),
+             float((trans - ref[1]).abs().max()))
+    rng = np.random.default_rng(seed)
+    width, height = args[1], args[2]
+    g_c = torch.as_tensor(rng.normal(size=(3, height, width)).astype(
+        np.float32), device=inst.device)
+    g_t = torch.as_tensor(rng.normal(size=(height, width)).astype(
+        np.float32), device=inst.device)
+    out = tile_blend.blend_image_bwd_cuda(inst, ranges, *args, color, trans,
+                                          g_c, g_t)
+    ref = tile_blend.blend_image_bwd_plain(inst, ranges, *args, color, trans,
+                                           g_c, g_t)
+    diff = (out - ref).abs()
+    return k1, float(diff.max()), float(
+        (diff.amax(0) / ref.abs().amax(0).clamp(min=1e-30)).max())
+
+
+def _parallel_rank(rank, world, root, device, width, height, n_per_face,
+                   renders):
+    """One of phase 12's ranks (a spawned process): gloo over one card.
+    Writes rank_<rank>.json; exits 1 on any failure."""
+    import traceback
+
+    try:
+        sys.path.insert(0, REPO)
+        from gaussianavatars_torch.benchmark import (
+            bench_camera, blend_inputs, bound_bench_scene,
+            make_bound_bench_model,
+        )
+        from gaussianavatars_torch.config import (
+            OptimizationConfig, PipelineConfig,
+        )
+        from gaussianavatars_torch.ops import tile_blend
+        from gaussianavatars_torch.ops.binning_dense import tile_grid
+        from gaussianavatars_torch.parallel import (
+            make_mesh, make_sharded_render, make_sharded_train_step,
+        )
+        from gaussianavatars_torch.parallel.distributed import (
+            initialize_distributed,
+        )
+        from gaussianavatars_torch.parallel.sharded import shard_state
+        from gaussianavatars_torch.train.loop import (
+            camera_arrays, initial_state, lr_pytree, make_render_fn,
+            make_train_step,
+        )
+
+        dev = initialize_distributed(f"file://{root}/rendezvous", world,
+                                     rank, backend="gloo", device=device,
+                                     timeout_s=RANK_TIMEOUT_S)
+        counted = {"blend_fwd": tile_blend.blend_image_cuda,
+                   "blend_bwd": tile_blend.blend_image_bwd_cuda}
+
+        def reset():
+            for fn in counted.values():
+                fn.launches = 0
+
+        def launches():
+            return {k: getattr(fn, "launches", 0)
+                    for k, fn in counted.items()}
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        mesh = make_mesh(1, world)
+        out = {"rank": rank, "device": str(dev),
+               "backend": torch.distributed.get_backend()}
+        model = make_bound_bench_model(n_per_face=n_per_face, device=dev)
+        n = model.num_gaussians
+        sh = model.active_sh_degree
+        cam_params = bench_camera(width, height, device=dev)
+        cam = camera_arrays(cam_params)
+        bg = torch.ones(3, device=dev)
+        render = make_sharded_render(mesh, width, height, sh)
+        single = make_render_fn(model, PipelineConfig(), width, height, sh)
+
+        def frames(t):
+            with torch.no_grad():
+                return model.face_frames_at(model.flame_param, t)
+
+        render(model.params, model.binding, frames(0), cam, bg)   # warm-up
+        sync()
+        reset()
+        t0 = time.perf_counter()
+        images = [render(model.params, model.binding,
+                         frames(i % model.num_timesteps), cam, bg)
+                  for i in range(renders)]
+        sync()
+        out["render_ms"] = 1e3 * (time.perf_counter() - t0) / renders
+        out["render_launches"] = launches()
+        out["image_err"] = max(
+            float((images[t] - single(model.params, model.flame_param,
+                                      model.binding, cam, bg, t).image)
+                  .abs().max())
+            for t in range(min(renders, model.num_timesteps)))
+        out["image_shape"] = list(images[0].shape)
+
+        # one step: the one-device step and the sharded step from fresh
+        # avatars (both update their FLAME tensors in place)
+        opt = OptimizationConfig()
+        gt = torch.as_tensor(np.random.default_rng(2).random(
+            (3, height, width)).astype(np.float32), device=dev)
+
+        def fresh():
+            m = make_bound_bench_model(n_per_face=n_per_face, device=dev)
+            state = initial_state(m)
+            fixed = {k: v for k, v in m.flame_param.items()
+                     if k not in state.flame_tr}
+            return m, state, fixed, lr_pytree(opt, 1e-3, state.flame_tr, 1.0)
+
+        m1, s1, fixed1, lrs1 = fresh()
+        s1, l1, _ = make_train_step(m1, opt, PipelineConfig(), width, height,
+                                    sh, m1.num_timesteps)(
+            s1, fixed1, m1.binding, cam, gt, bg, 1, lrs1)
+        m2, s2, fixed2, lrs2 = fresh()
+        rows = mesh.shard(n)
+        step = make_sharded_train_step(mesh, m2, opt, PipelineConfig(),
+                                       width, height, sh)
+        s2 = shard_state(s2, mesh)
+        sync()
+        reset()
+        t0 = time.perf_counter()
+        s2, l2, _ = step(s2, fixed2, m2.binding[rows], cam, gt, bg, 1, lrs2,
+                         n)
+        sync()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["step_launches"] = launches()
+        rel = {}
+        for k in s1.mu["gauss"]._fields:
+            ref = getattr(s1.mu["gauss"], k)
+            got = getattr(s2.mu["gauss"], k)
+            rel[k] = float((got - ref[rows]).abs().max()
+                           / ref.abs().max().clamp(min=1e-30))
+        for k, ref in s1.mu["flame"].items():
+            rel["flame_" + k] = float((s2.mu["flame"][k] - ref).abs().max()
+                                      / ref.abs().max().clamp(min=1e-30))
+        out["grad_rel"] = rel
+        out["loss_rel"] = {k: abs(float(l2[k]) / float(l1[k]) - 1.0)
+                           for k in l1}
+
+        # K1 and K2 on this rank's slab of the bench stream
+        rows_per = -(-tile_grid(width, height, 32)[1] // world)
+        inst, ranges, args = blend_inputs(
+            bound_bench_scene(model, 0), cam_params, 32, sh,
+            rank * rows_per, rows_per)
+        out["slab_instances"] = int(inst.shape[0])
+        out["slab_rows"] = [rank * rows_per, rows_per]
+        if dev.type == "cuda":
+            out["k1_err"], out["k2_err"], out["k2_rel"] = _kernel_errors(
+                inst, ranges, args, 200 + rank)
+        with open(os.path.join(root, f"rank_{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(dev, work, width, height, n_per_face=10,
+                   renders=PARALLEL_RENDERS, nccl_iterations=NCCL_ITERATIONS,
+                   multi_iterations=MULTI_ITERATIONS,
+                   bench_iters=BENCH_MULTI_ITERS):
+    """Phase 12: two ranks on one card over gloo, `train --distributed`
+    with NCCL and a world of 1 on phase 8's dataset under `work`, and two
+    subjects trained in turn on one rank (see the module docstring).
+    Returns the numbers it measured; raises on any failure."""
+    import multiprocessing
+
+    from gaussianavatars_torch import bench_multisubject
+    from gaussianavatars_torch.benchmark import (
+        bench_camera, make_bound_bench_model,
+    )
+    from gaussianavatars_torch.config import OptimizationConfig, PipelineConfig
+    from gaussianavatars_torch.ops import tile_blend
+    from gaussianavatars_torch.parallel import make_mesh
+    from gaussianavatars_torch.train.loop import camera_arrays
+    from gaussianavatars_torch.train.multisubject import MultiSubjectTrainer
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = {}
+    # ---- two ranks on one card over gloo -----------------------------------
+    root = tempfile.mkdtemp(prefix="ranks_", dir=work)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(r, 2, root, dev.type, width, height,
+                               n_per_face, renders)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(RANK_TIMEOUT_S)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    out["ranks_s"] = time.perf_counter() - t0
+    check([p.exitcode for p in procs] == [0, 0],
+          f"phase 12 ranks exited {[p.exitcode for p in procs]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r in ranks:
+        print(f"[parallel] rank {r['rank']} ({r['backend']}, {r['device']}): "
+              f"{renders} sharded renders {r['render_ms']:.2f} ms each, "
+              f"max|d| vs make_render_fn {r['image_err']:.3e} (limit "
+              f"{TOL_SHARDED_IMAGE:.0e}), launches {r['render_launches']}; "
+              f"step {r['step_ms']:.2f} ms, launches {r['step_launches']}, "
+              f"worst gradient leaf "
+              f"{max(r['grad_rel'].values()):.3e} (limit 2e-04); slab tile "
+              f"rows {r['slab_rows']}, {r['slab_instances']} instances, K1 "
+              f"{r.get('k1_err', float('nan')):.3e}, K2 "
+              f"{r.get('k2_rel', float('nan')):.3e}")
+        check(r["image_shape"] == [3, height, width],
+              f"sharded image {r['image_shape']}")
+        check(r["image_err"] <= TOL_SHARDED_IMAGE,
+              f"rank {r['rank']}: sharded render max|d| {r['image_err']}")
+        for k, v in r["grad_rel"].items():
+            check(v <= TOL_SHARDED_GRAD, f"rank {r['rank']}: sharded step "
+                  f"gradient {k} relative error {v}")
+        for k, v in r["loss_rel"].items():
+            check(v <= 1e-5, f"rank {r['rank']}: loss {k} differs by {v}")
+        if dev.type == "cuda":
+            check(r["render_launches"] == {"blend_fwd": renders,
+                                           "blend_bwd": 0},
+                  f"rank {r['rank']}: render launches {r['render_launches']}")
+            check(r["step_launches"] == {"blend_fwd": 1, "blend_bwd": 1},
+                  f"rank {r['rank']}: step launches {r['step_launches']}")
+            check(r["k1_err"] <= TOL_BENCH,
+                  f"rank {r['rank']}: K1 on its slab {r['k1_err']}")
+            check(r["k2_rel"] <= TOL_BWD_BENCH,
+                  f"rank {r['rank']}: K2 on its slab {r['k2_rel']}")
+    out["ranks"] = ranks
+
+    # ---- NCCL, a world of 1: the train entry point ---------------------------
+    nccl_dir = os.path.join(work, "nccl")
+    env = dict(os.environ, PYTHONPATH=REPO, RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()),
+               FLAME_ASSET_DIR=os.path.join(work, "assets"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "gaussianavatars_torch.train",
+         "-s", os.path.join(work, "data"), "-m", nccl_dir, "--bind_to_mesh",
+         "--eval", "--iterations", str(nccl_iterations), "--device",
+         dev.type, "--distributed", "--port", "0"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    out["nccl_s"] = time.perf_counter() - t0
+    check(res.returncode == 0, f"train --distributed exited "
+          f"{res.returncode}: {res.stderr[-3000:]}")
+    for name in (f"point_cloud/iteration_{nccl_iterations}/point_cloud.ply",
+                 f"chkpnt{nccl_iterations}.npz"):
+        check(os.path.exists(os.path.join(nccl_dir, name)),
+              f"train --distributed wrote no {name}")
+    check("Training complete" in res.stdout, "train --distributed did not "
+          "complete")
+    tail = [line for line in res.stdout.splitlines() if line.strip()]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    print(f"[parallel] train --distributed ({backend}, world 1): "
+          f"{nccl_iterations} iterations in {out['nccl_s']:.1f} s (process "
+          f"included); {tail[-2] if len(tail) > 1 else tail}")
+
+    # ---- two subjects in turn on one rank ------------------------------------
+    half = max(1, multi_iterations // 2)
+    opt = OptimizationConfig(
+        densify_from_iter=0, densification_interval=half,
+        densify_until_iter=half + 1,
+        # every Gaussian clones or splits: each decision is a function of
+        # the parameters, none hangs on a gradient at float32 noise
+        densify_grad_threshold=0.0, opacity_reset_interval=10 ** 9)
+    cam = camera_arrays(bench_camera(width, height, device=dev))
+    bg = torch.ones(3, device=dev)
+    gts = [torch.as_tensor(np.random.default_rng(10 + s).random(
+        (3, height, width)).astype(np.float32), device=dev)
+        for s in range(2)]
+    mesh = make_mesh(1, 1)
+    counted = {"blend_fwd": tile_blend.blend_image_cuda,
+               "blend_bwd": tile_blend.blend_image_bwd_cuda}
+
+    def run(subjects):
+        models = [make_bound_bench_model(n_per_face=n_per_face, seed=s,
+                                         device=dev) for s in subjects]
+        start = models[0].num_gaussians
+        trainer = MultiSubjectTrainer(models, mesh, opt, PipelineConfig(),
+                                      width, height, [1.0] * len(models))
+
+        def batch_fn(i, iteration):
+            return cam, gts[subjects[i]], bg, iteration % 4
+
+        sync()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses = trainer.train(batch_fn, 1, multi_iterations)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0) / multi_iterations
+        for k, v in losses.items():
+            check(bool(torch.isfinite(v)), f"subjects {subjects}: loss {k}")
+        check(all(m.num_gaussians > start for m in models),
+              f"subjects {subjects}: the densification added no Gaussians")
+        return models, ms, {k: getattr(fn, "launches", 0)
+                            for k, fn in counted.items()}
+
+    def max_diff(a, b):
+        check(a.num_gaussians == b.num_gaussians,
+              f"{a.num_gaussians} vs {b.num_gaussians} Gaussians")
+        return max(float((x - y).abs().max())
+                   for x, y in zip(a.params, b.params))
+
+    both, both_ms, both_launches = run([0, 1])
+    solo = [run([s]) for s in range(2)]
+    again = run([0])
+    drift = max_diff(solo[0][0][0], again[0][0])
+    gaps = [max_diff(both[s], solo[s][0][0]) for s in range(2)]
+    counts = [m.num_gaussians for m in both]
+    print(f"[parallel] two subjects in turn, {multi_iterations} iterations "
+          f"(densified at {half} to {counts} Gaussians): {both_ms:.2f} ms an "
+          f"iteration against {solo[0][1]:.2f} ms solo; max|d| from the solo "
+          f"runs {gaps[0]:.3e} / {gaps[1]:.3e}, solo run-to-run drift "
+          f"{drift:.3e} (limit {DRIFT_MULTIPLE} x drift); launches "
+          f"{both_launches}")
+    for s, gap in enumerate(gaps):
+        check(gap <= DRIFT_MULTIPLE * drift,
+              f"subject {s}: {gap} from its solo run, drift {drift}")
+    if dev.type == "cuda":
+        check(both_launches == {"blend_fwd": 2 * multi_iterations,
+                                "blend_bwd": 2 * multi_iterations},
+              f"two-subject launches {both_launches}")
+    out["multisubject"] = dict(
+        iterations=multi_iterations, ms_per_iteration=both_ms,
+        solo_ms_per_iteration=solo[0][1], gaps=gaps, drift=drift,
+        counts=counts, launches=both_launches)
+    bench = bench_multisubject.main([
+        "--iters", str(bench_iters), "--rounds", "2", "--width", str(width),
+        "--height", str(height), "--n_per_face", str(n_per_face),
+        "--device", dev.type])
+    out["bench_multisubject"] = bench
+    out["launches"] = {
+        "ranks_render": ranks[0]["render_launches"],
+        "ranks_step": ranks[0]["step_launches"],
+        "multisubject": both_launches}
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2506,6 +2898,13 @@ def main(argv=None) -> int:
         errs.append(viewer_line.pop("k1_err"))
         print(json.dumps(dict(what="viewer", **viewer_line)))
         lap("viewer")
+        # ---- 12. ranks over gloo and NCCL, two subjects ---------------------
+        parallel_line = parallel_phase(dev, workdir, WIDTH, HEIGHT)
+        errs.extend(r["k1_err"] for r in parallel_line["ranks"])
+        bwd_errs.extend((r["k2_err"], r["k2_rel"], 0.0)
+                        for r in parallel_line["ranks"])
+        print(json.dumps(dict(what="parallel", **parallel_line)))
+        lap("parallel")
     finally:
         if saved_env is None:
             os.environ.pop("FLAME_ASSET_DIR", None)
@@ -2561,6 +2960,11 @@ def main(argv=None) -> int:
         "gui_launches": viewer_line["launches"]["gui"]["blend_fwd"],
         "viewer_phase_launches": {k: v["blend_fwd"] for k, v in
                                   viewer_line["launches"].items()},
+        "parallel_launches": {
+            k: v["blend_fwd"] for k, v in parallel_line["launches"].items()},
+        "parallel_calls": {
+            "ranks_render": PARALLEL_RENDERS, "ranks_step": 1,
+            "multisubject_steps": 2 * MULTI_ITERATIONS},
         "viewer_calls": {
             "viewer_frames": viewer_line["local"]["frames"]
             + viewer_line["local"]["mesh_frames"],
@@ -2594,6 +2998,8 @@ def main(argv=None) -> int:
         "gui_launches": viewer_line["launches"]["gui"]["blend_bwd"],
         "viewer_phase_launches": {k: v["blend_bwd"] for k, v in
                                   viewer_line["launches"].items()},
+        "parallel_launches": {
+            k: v["blend_bwd"] for k, v in parallel_line["launches"].items()},
         "max_abs_err": max(e[0] for e in bwd_errs),
         "max_column_rel_err": max(e[1] for e in bwd_errs),
         "pixel_evaluations": walked["blend_bwd"]["pixel_evaluations"],

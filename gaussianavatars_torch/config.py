@@ -95,6 +95,9 @@ class PipelineConfig:
     tile_size: square pixel tile of the blend (16 or 32).
     binning: instance-stream builder; "dense" (the exact ellipse-culled
       duplicated-key sort of `ops/binning_dense.py`) is the only one ported.
+    data_parallel: camera-batch groups over the mesh's 'data' axis.
+    render_parallel: Gaussian / tile-row shards over its 'prim' axis (the
+      mesh has data_parallel * render_parallel ranks; `train/loop.py`).
     """
 
     convert_SHs_python: bool = False
@@ -102,6 +105,8 @@ class PipelineConfig:
     debug: bool = False
     tile_size: int = 32
     binning: str = "dense"
+    data_parallel: int = 1
+    render_parallel: int = 1
 
     @classmethod
     def add_to_parser(cls, parser):

@@ -6,6 +6,10 @@ builds the port's model, so that both packages render the same avatar and,
 with the Adam state and the densification statistics carried too, compute
 the same train step.
 
+`from_jax_multisubject` builds one port model per subject from the JAX
+multi-subject trainer's stacked state, and `shard_from_jax` cuts a JAX
+state laid out over a ('data', 'prim') mesh into this rank's shard.
+
 `load_checkpoint` reads a training checkpoint (`chkpnt<N>.npz`) into the
 port's model. Both packages write checkpoints under the same keys, so it
 reads the JAX package's as well as the port's, and the JAX package's
@@ -100,6 +104,52 @@ def from_jax_arrays(
              "flame": flame(m["flame"])}
             for m in (mu, nu)) + (int(count),)
     return model
+
+
+def from_jax_multisubject(params_s: dict, binding_s, active_s,
+                          flame_param_s: dict, **kwargs
+                          ) -> list[FlameGaussianModel]:
+    """The S port models of a JAX multi-subject state.
+
+    The JAX trainer stacks its subjects on a leading axis over a common
+    capacity: `params_s` {field: [S, capacity, ...]}, `binding_s` and
+    `active_s` [S, capacity], `flame_param_s` {key: [S, ...]}. Subject s
+    keeps its active rows, in order. `kwargs` go to `from_jax_arrays`
+    (sh_degree, the FLAME paths, device, ...).
+    """
+    models = []
+    for s, active in enumerate(np.asarray(active_s, bool)):
+        models.append(from_jax_arrays(
+            {k: np.asarray(v[s])[active] for k, v in params_s.items()},
+            np.asarray(binding_s[s])[active],
+            {k: np.asarray(v[s]) for k, v in flame_param_s.items()},
+            **kwargs))
+    return models
+
+
+def shard_from_jax(tree, n_alive: int, mesh,
+                   device: str | torch.device = "cuda"):
+    """This rank's prim shard of a JAX state's per-Gaussian arrays.
+
+    The JAX package shards the capacity axis of arrays whose first
+    `n_alive` rows are the live Gaussians; the port shards the live rows
+    (`parallel/mesh.py::Mesh.shard`). `tree` is a dict or NamedTuple of
+    numpy arrays [capacity, ...] (nested dicts too); the result has the
+    same structure, as float32 tensors on `device`.
+    """
+    dev = resolve_device(device)
+    rows = mesh.shard(n_alive)
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        if hasattr(tree, "_fields"):
+            return type(tree)(*[cut(v) for v in tree])
+        return torch.as_tensor(
+            np.array(np.asarray(tree)[:n_alive][rows], np.float32),
+            device=dev)
+
+    return cut(tree)
 
 
 def load_checkpoint(path: str, model) -> tuple[int, AdamState, dict]:

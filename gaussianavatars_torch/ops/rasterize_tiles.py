@@ -22,7 +22,11 @@ from gaussianavatars_torch.ops.instance_pack import (
     gather_instances,
     pack_projected,
 )
-from gaussianavatars_torch.ops.projection import CameraParams, project_gaussians
+from gaussianavatars_torch.ops.projection import (
+    CameraParams,
+    ProjectedGaussians,
+    project_gaussians,
+)
 from gaussianavatars_torch.ops.tile_blend import blend_image
 
 
@@ -45,6 +49,7 @@ def rasterize(
     colors_precomp: Optional[torch.Tensor] = None,
     cov3d_precomp: Optional[torch.Tensor] = None,
     mark: Optional[Callable[[str], None]] = None,
+    projected: Optional[ProjectedGaussians] = None,
 ) -> RenderOutput:
     """Tile-based splat render (reference gaussian_renderer/__init__.py:86-94).
 
@@ -58,11 +63,19 @@ def rasterize(
     given, is called with each stage's name as the stage is issued
     ("projection", "binning", "pack_gather", "blend", "composite"); the
     chip smoke test records CUDA events there.
+
+    `projected` hands in Gaussians that are already projected (the
+    render-parallel path of `parallel/sharded.py` projects each shard where
+    it lives and gathers the set); the first five arguments, the
+    projection options and `means2d_offset` are then not read, nor is
+    `projected.r2_max`.
     """
-    proj = project_gaussians(
-        means3d, scales, quats, opacities, shs, sh_degree, camera,
-        scaling_modifier=scaling_modifier, means2d_offset=means2d_offset,
-        colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp)
+    proj = projected
+    if proj is None:
+        proj = project_gaussians(
+            means3d, scales, quats, opacities, shs, sh_degree, camera,
+            scaling_modifier=scaling_modifier, means2d_offset=means2d_offset,
+            colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp)
     if mark:
         mark("projection")
     binning = bin_gaussians_dense(

@@ -21,8 +21,18 @@ is printed and the run trains without the viewer. It always logs to a
 tensorboard event file `events.out.tfevents.*` in the model directory
 (`utils/tensorboard.py`). --profile_dir DIR records the whole run with
 `torch.profiler` and writes a Chrome trace there: meant for short runs.
-The JAX script's --distributed is not accepted: multi-device training is
-not ported.
+
+--distributed starts `torch.distributed` from torchrun's variables
+(`parallel/distributed.py::initialize_distributed`: NCCL on cuda, gloo on
+cpu, one card per rank) and trains over the ('data', 'prim') mesh of
+--data_parallel x --render_parallel ranks (default 1 x 1), which must be
+the world:
+
+    torchrun --nproc_per_node=P -m gaussianavatars_torch.train -s <data> \
+        -m <output> --bind_to_mesh --distributed --render_parallel P
+
+Rank 0 alone prints, serves the viewer and writes the PLY, checkpoints and
+event file, the same files as a one-device run.
 """
 
 from __future__ import annotations
@@ -72,6 +82,9 @@ def main(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler Chrome trace of the "
                              "run here")
+    parser.add_argument("--distributed", action="store_true",
+                        help="start torch.distributed from torchrun's "
+                             "variables and train on the process mesh")
     args = parser.parse_args(argv)
 
     if args.interval > args.iterations:
@@ -85,22 +98,36 @@ def main(argv=None):
     opt_cfg = OptimizationConfig.extract(args)
     pipe_cfg = PipelineConfig.extract(args)
 
+    lead = True
+    if args.distributed:
+        import torch.distributed as dist
+
+        from gaussianavatars_torch.parallel.distributed import (
+            initialize_distributed,
+        )
+
+        initialize_distributed(device=args.device)
+        lead = dist.get_rank() == 0
+
     from gaussianavatars_torch.train.loop import training
     from gaussianavatars_torch.utils.system import profile_trace
     from gaussianavatars_torch.utils.tensorboard import SummaryWriter
     from gaussianavatars_torch.viewer.network_gui import NetworkGUI
 
     with contextlib.ExitStack() as stack:
-        if args.quiet:
+        if args.distributed:
+            stack.callback(dist.destroy_process_group)
+        if args.quiet or not lead:
             stack.enter_context(contextlib.redirect_stdout(
                 stack.enter_context(open(os.devnull, "w"))))
         if args.detect_anomaly:
             stack.enter_context(torch.autograd.set_detect_anomaly(True))
         print("Optimizing " + model_cfg.model_path)
-        tb_writer = SummaryWriter(model_cfg.model_path)
-        stack.callback(tb_writer.close)
-        gui = None
-        if not args.no_gui:
+        tb_writer = gui = None
+        if lead:
+            tb_writer = SummaryWriter(model_cfg.model_path)
+            stack.callback(tb_writer.close)
+        if lead and not args.no_gui:
             gui = NetworkGUI(args.ip, args.port)
             try:
                 gui.init()

@@ -5,8 +5,11 @@ densification, opacity resets, evaluation, saving and checkpoints).
 
 `training` serves the network viewer between steps (`gui_poll`, a
 `viewer/network_gui.py` server) and logs to a tensorboard writer
-(`utils/tensorboard.py`) as the JAX loop does. Left out, as TPU devices:
-capacity and level-bucket growth, the overflow probes and the asynchronous
+(`utils/tensorboard.py`) as the JAX loop does. With
+`PipelineConfig.data_parallel` / `render_parallel` (or under
+`torch.distributed`) it trains over the process mesh of `parallel/`
+(`make_parallel_train_step`). Left out, as TPU devices: capacity and
+level-bucket growth, the overflow probes and the asynchronous
 precompilation.
 """
 
@@ -20,6 +23,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gaussianavatars_torch.config import (
     ModelConfig,
@@ -302,6 +306,34 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
     return step
 
 
+def make_parallel_train_step(mesh, model, opt_cfg: OptimizationConfig,
+                             pipe_cfg: PipelineConfig, width: int,
+                             height: int, sh_degree: int):
+    """The train step of `training`'s parallel branch: the contract of
+    `make_train_step` (without `mark`) around
+    `parallel/sharded.py::make_sharded_train_step`, on this rank's part.
+    `state` is the rank's prim shard (`parallel/sharded.py::shard_state`),
+    `binding` the model's full binding (the step takes the shard's rows)
+    and the view is this rank's data group's camera of the batch; one
+    optimizer step consumes the batch of `mesh.shape["data"]` views.
+    `model.num_gaussians` is the total the shards add up to.
+    """
+    from gaussianavatars_torch.parallel.sharded import make_sharded_train_step
+
+    raw = make_sharded_train_step(mesh, model, opt_cfg, pipe_cfg, width,
+                                  height, sh_degree)
+
+    def step(state: StepState, flame_fixed: dict, binding,
+             cam: CameraArrays, gt_image, bg, timestep: int, lrs: dict):
+        n = model.num_gaussians
+        if binding is not None:
+            binding = binding[mesh.shard(n)]
+        return raw(state, flame_fixed, binding, cam, gt_image, bg, timestep,
+                   lrs, n)
+
+    return step
+
+
 def _flame_regularizers(model, opt_cfg: OptimizationConfig,
                         flame_full: dict, timestep: int,
                         verts_cano: torch.Tensor, total, losses: dict):
@@ -452,6 +484,22 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     `bind_to_mesh`, its FLAME head from $FLAME_ASSET_DIR) lives on
     `device`.
 
+    With `pipe_cfg.data_parallel` x `render_parallel` > 1, or whenever
+    `torch.distributed` is initialized, every rank of the world (one
+    process per rank, e.g. `train --distributed` under torchrun) runs this
+    function on the ('data', 'prim') mesh of `parallel/mesh.py`, whose size
+    must be the world's. Each rank holds its prim shard of the Gaussians,
+    their moments and statistics; one optimizer step consumes
+    `data_parallel` cameras of one resolution, drawn alike on every rank
+    from the identically seeded loader, each rank taking its data group's
+    (`make_parallel_train_step`). Densification, opacity resets, saving,
+    checkpoints, evaluation and the viewer gather the full model to every
+    rank; the surgery runs alike on each (same seed) and the state is
+    sharded again. Rank 0 alone prints, writes the PLY, checkpoints, the
+    event file and the summary (the files of a one-device run), evaluates
+    and serves the viewer; the model and state returned are full on every
+    rank.
+
     Returns (model, state, info); info holds "ema_loss", "elapsed",
     "history" [(iteration, ema)], "timeline" [(iteration, wall time)],
     "metrics" {iteration: evaluate_splits result}, "densify_s" [seconds of
@@ -462,8 +510,28 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     from gaussianavatars_torch.data.scene import Scene
 
     dev = resolve_device(device)
+    mesh = None
+    n_data = max(1, pipe_cfg.data_parallel)
+    if n_data * max(1, pipe_cfg.render_parallel) > 1 or dist.is_initialized():
+        from gaussianavatars_torch.parallel.mesh import make_mesh, mesh_device
+        from gaussianavatars_torch.parallel.sharded import (
+            gather_state,
+            shard_state,
+        )
+
+        mesh = make_mesh(n_data, max(1, pipe_cfg.render_parallel))
+        if mesh.size != dist.get_world_size():
+            raise ValueError(
+                f"a {n_data} x {pipe_cfg.render_parallel} mesh trains on "
+                f"{mesh.size} ranks; the world has {dist.get_world_size()}")
+        dev = mesh_device(dev)
+    lead = mesh is None or dist.get_rank() == 0
+    log = print if lead else (lambda *args, **kwargs: None)
+    if not lead:
+        tb_writer = gui = None
     os.makedirs(model_cfg.model_path, exist_ok=True)
-    save_config(model_cfg.model_path, model_cfg)
+    if lead:
+        save_config(model_cfg.model_path, model_cfg)
     # reference safe_state: the camera shuffle uses the global `random`
     safe_state(seed)
 
@@ -497,6 +565,25 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     state = StepState(params=model.params, flame_tr=flame_tr, mu=mu, nu=nu,
                       count=count, max_radii2d=model.max_radii2d,
                       grad_accum=model.xyz_gradient_accum, denom=model.denom)
+    if mesh is not None:
+        state = shard_state(state, mesh)
+        # whether rank 0 serves the viewer, known to every rank
+        serving = torch.tensor([int(gui is not None)], device=dev)
+        dist.broadcast(serving, 0)
+        serving = bool(serving.item())
+
+    def full_state() -> StepState:
+        """The full state, written back into `model` for the host code
+        (the step updated the tensors in place; the assignments only name
+        them); under a mesh a gather of the shards."""
+        full = state if mesh is None else gather_state(
+            state, mesh, model.num_gaussians)
+        model.params = full.params
+        model.max_radii2d = full.max_radii2d
+        model.xyz_gradient_accum = full.grad_accum
+        model.denom = full.denom
+        return full
+
     step_fns, gui_fns = {}, {}
     gt_cache, gt_bytes = {}, 0     # device-resident ground truth
     bg_cache = {}
@@ -507,9 +594,21 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
 
     try:
         for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
-            if gui is not None:
+            if mesh is None and gui is not None:
                 gui_poll(gui, model, state, flame_fixed, pipe_cfg, iteration,
                          opt_cfg.iterations, gui_fns)
+            elif mesh is not None and serving:
+                # a gather only while a client is connected to rank 0
+                if gui is not None and gui.conn is None:
+                    gui.try_connect()
+                busy = torch.tensor([int(gui is not None and
+                                         gui.conn is not None)], device=dev)
+                dist.broadcast(busy, 0)
+                if busy.item():
+                    full = gather_state(state, mesh, model.num_gaussians)
+                    if gui is not None:
+                        gui_poll(gui, model, full, flame_fixed, pipe_cfg,
+                                 iteration, opt_cfg.iterations, gui_fns)
             if debug_from >= 0 and iteration >= debug_from:
                 pipe_cfg.debug = True
             xyz_lr = float(expon_lr(
@@ -521,13 +620,27 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             if iteration % 1000 == 0:           # SH warmup
                 model.one_up_sh_degree()
 
-            cam, gt = next(loader)
+            if mesh is None:
+                cam, gt = next(loader)
+                batch = [cam]
+            else:
+                # every rank draws the whole batch; each takes its group's
+                views = [next(loader) for _ in range(n_data)]
+                batch = [c for c, _ in views]
+                sizes = {c.resolution(model_cfg.resolution) for c in batch}
+                if len(sizes) != 1:
+                    raise ValueError("a data-parallel batch needs one "
+                                     f"resolution, got {sorted(sizes)}")
+                cam, gt = views[mesh.data_index]
             w, h = cam.resolution(model_cfg.resolution)
             key = (w, h, model.active_sh_degree)
             if key not in step_fns:
                 step_fns[key] = make_train_step(
                     model, opt_cfg, pipe_cfg, w, h, model.active_sh_degree,
-                    model.num_timesteps)
+                    model.num_timesteps) if mesh is None else \
+                    make_parallel_train_step(
+                        mesh, model, opt_cfg, pipe_cfg, w, h,
+                        model.active_sh_degree)
             gt_key = (cam.image_path or (cam.camera_id, cam.timestep), w, h)
             gt_dev = gt_cache.get(gt_key)
             if gt_dev is None:
@@ -554,7 +667,9 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                 if pipe_cfg.debug and not np.isfinite(total):
                     snap = os.path.join(model_cfg.model_path,
                                         f"snapshot_fw_{iteration}.npz")
-                    save_checkpoint(model, state, iteration, snap)
+                    full = full_state()
+                    if lead:
+                        save_checkpoint(model, full, iteration, snap)
                     raise FloatingPointError(
                         f"non-finite loss at iteration {iteration}; state "
                         f"written to {snap}")
@@ -571,35 +686,45 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                     tb_writer.add_scalar("total_points",
                                          model.num_gaussians, iteration)
             if iteration % PRINT_EVERY == 0 or iteration == opt_cfg.iterations:
-                print(f"[ITER {iteration}] loss {ema_loss:.7f}, "
-                      f"{model.num_gaussians} Gaussians")
+                log(f"[ITER {iteration}] loss {ema_loss:.7f}, "
+                    f"{model.num_gaussians} Gaussians")
             prev_losses = losses
 
-            # write back for the host-side surgery (the step updated these
-            # tensors in place; the assignments only name them)
-            model.params = state.params
-            model.max_radii2d = state.max_radii2d
-            model.xyz_gradient_accum = state.grad_accum
-            model.denom = state.denom
+            densify_now = iteration < opt_cfg.densify_until_iter and (
+                iteration > opt_cfg.densify_from_iter and
+                iteration % opt_cfg.densification_interval == 0)
+            reset_now = iteration < opt_cfg.densify_until_iter and (
+                iteration % opt_cfg.opacity_reset_interval == 0 or (
+                    model_cfg.white_background
+                    and iteration == opt_cfg.densify_from_iter))
+            host_work = (densify_now or reset_now
+                         or iteration in saving_iterations
+                         or iteration in testing_iterations
+                         or iteration in checkpoint_iterations)
+            # under a mesh the host code works on the gathered full state,
+            # sharded again at the end of the iteration
+            if mesh is None or host_work:
+                state = full_state()
             if bound:
                 model.merge_flame_trainable(state.flame_tr)
 
-            if iteration in saving_iterations:
+            if iteration in saving_iterations and lead:
                 print(f"[ITER {iteration}] Saving Gaussians")
                 scene.save(iteration)
 
-            if iteration < opt_cfg.densify_until_iter:
-                if (iteration > opt_cfg.densify_from_iter and
-                        iteration % opt_cfg.densification_interval == 0):
+            if densify_now or reset_now:
+                if densify_now:
                     t0 = time.perf_counter()
                     size_threshold = (
                         20 if iteration > opt_cfg.opacity_reset_interval
                         else None)
                     face_scaling = None
                     if bound:
+                        # the batch's first view, as in the JAX package
                         with torch.no_grad():
                             face_scaling = model.face_frames_at(
-                                model.flame_param, cam.timestep or 0).scaling
+                                model.flame_param,
+                                batch[0].timestep or 0).scaling
                     adam_g = model.densify_and_prune(
                         _adam(state), opt_cfg.densify_grad_threshold, 0.005,
                         scene.cameras_extent, size_threshold,
@@ -610,14 +735,12 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
                     densify_s.append(time.perf_counter() - t0)
-                if (iteration % opt_cfg.opacity_reset_interval == 0 or (
-                        model_cfg.white_background
-                        and iteration == opt_cfg.densify_from_iter)):
+                if reset_now:
                     state = _after_surgery(model, state,
                                            model.reset_opacity(_adam(state)))
                     events["opacity_reset"] += 1
 
-            if iteration in testing_iterations:
+            if iteration in testing_iterations and lead:
                 metrics[iteration] = evaluate_splits(
                     model, scene, model_cfg, pipe_cfg, state, flame_fixed,
                     tb_writer=tb_writer, iteration=iteration)
@@ -634,12 +757,15 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                         torch.sigmoid(state.params.opacity[:, 0]).cpu()
                         .numpy(), iteration)
 
-            if iteration in checkpoint_iterations:
+            if iteration in checkpoint_iterations and lead:
                 print(f"[ITER {iteration}] Saving Checkpoint")
                 save_checkpoint(model, state, iteration, os.path.join(
                     model_cfg.model_path, f"chkpnt{iteration}.npz"))
+            if mesh is not None and host_work:
+                state = shard_state(state, mesh)
     finally:
         loader.stop()
+    state = full_state()
 
     elapsed = time.time() - t_start
     summary = {
@@ -650,9 +776,10 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         "densify": events["densify"],
         "opacity_reset": events["opacity_reset"],
     }
-    with open(os.path.join(model_cfg.model_path, "run_summary.json"),
-              "w") as f:
-        json.dump(summary, f, indent=2)
+    if lead:
+        with open(os.path.join(model_cfg.model_path, "run_summary.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=2)
     return model, state, {"ema_loss": ema_loss or 0.0, "elapsed": elapsed,
                           "history": history, "timeline": timeline,
                           "metrics": metrics, "densify_s": densify_s,

@@ -235,8 +235,7 @@ def test_camera_params_match_jax():
 
 def test_config_matches_jax(tmp_path):
     tpu_only = {"backend", "chunk", "capacity", "slab_tile_rows",
-                "level_scale", "level_scales", "data_parallel",
-                "render_parallel"}
+                "level_scale", "level_scales"}
     for name in ("ModelConfig", "OptimizationConfig", "PipelineConfig"):
         got = vars(getattr(config, name)())
         ref = vars(getattr(jax_config, name)())

@@ -159,8 +159,9 @@ FORBIDDEN = ("jax", "jaxlib", "gaussianavatars_tpu", "tests", "PIL", "tqdm",
 # shells (`main` of local_viewer.py and remote_viewer.py), which the hosts
 # without a display never run
 SHELLS_ONLY = {"dearpygui": ("local_viewer.py", "remote_viewer.py")}
-# the offline tools' modules, the COLMAP reader and the quality protocols,
-# which the GPU host must import as well
+# the offline tools' modules, the COLMAP reader, the quality protocols, the
+# viewers and the parallel and multi-subject training, which the GPU host
+# must import as well
 NEW_MODULES = ("gaussianavatars_torch.metrics",
                "gaussianavatars_torch.metrics_lib.lpips",
                "gaussianavatars_torch.models.flame_mask_tables",
@@ -177,7 +178,12 @@ NEW_MODULES = ("gaussianavatars_torch.metrics",
                "gaussianavatars_torch.fps_benchmark_dataset",
                "gaussianavatars_torch.utils.tensorboard",
                "gaussianavatars_torch.utils.jpeg",
-               "gaussianavatars_torch.utils.nvjpeg")
+               "gaussianavatars_torch.utils.nvjpeg",
+               "gaussianavatars_torch.parallel.mesh",
+               "gaussianavatars_torch.parallel.distributed",
+               "gaussianavatars_torch.parallel.sharded",
+               "gaussianavatars_torch.train.multisubject",
+               "gaussianavatars_torch.bench_multisubject")
 
 
 def test_port_imports_no_jax():

@@ -147,15 +147,17 @@ def test_train_needs_a_gpu_unless_asked(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "o"),
                         "--detect_anomaly", "--debug_from", "1"])
-    # the viewer and profiler flags are accepted now (and need the GPU);
-    # multi-device training is still not ported
+    # the viewer and profiler flags are accepted now (and need the GPU),
+    # and so is multi-device training: NCCL on the GPU by default
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "o"),
                         "--no_gui", "--profile_dir", str(tmp_path / "p"),
                         "--port", "0"])
-    for argv in (["--distributed"], ["--profile_dir"]):
-        with pytest.raises(SystemExit):
-            train_cli.main(["-s", str(tmp_path)] + argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "o"),
+                        "--distributed", "--render_parallel", "2"])
+    with pytest.raises(SystemExit):
+        train_cli.main(["-s", str(tmp_path), "--profile_dir"])
 
 
 class _Hook:
