@@ -125,7 +125,27 @@ Phases (any failure exits non-zero before the result line):
      (every Gaussian cloned or split at 10), each subject within 4x a solo
      run's run-to-run drift of its solo run (the gather's `index_add_` is
      not bit-deterministic on the card), its ms per iteration beside the
-     solo run's, and `bench_multisubject`'s steps/s and efficiency.
+     solo run's, and `bench_multisubject`'s steps/s and efficiency;
+ 13. the sort binning (`sort_phase`, `--binning sort`) on a fresh bench
+     avatar: 8 renders through `make_render_fn` with
+     `PipelineConfig(binning="sort")` over the 4 timesteps, each image
+     within 1e-5 of the dense image (values where an alpha flips at the
+     1/255 edge are counted and held to 1e-3, at most 1e-4 of them), a
+     longer stream, one K1 per render, ms per render beside the dense
+     path's; one sort train step against one dense step from the same
+     state (gradient leaves max|d| / max|dense| <= 2e-4, losses rtol
+     1e-5, the densification statistics equal), then 2 + 10 sort steps
+     with one K1 and one K2 each; K1 and K2 against their plain versions
+     on the sort stream (1e-3, 5e-4 per column, K2 twice for the same
+     bits), both kernels timed on the sort and the dense stream, the sort
+     stream's ranges, bounds and counting-build walk (a `sort_stream`
+     JSON line); `python -m gaussianavatars_torch.train --binning sort`
+     for 30 iterations on phase 8's dataset; the parity tool
+     (`tools/parity_vs_reference.py`: `--check_assets`, `--self_check`,
+     a dense and a sort dump of phase 8's PLY and `--compare` of the
+     two); `tools/diag_eval_views.py` on phase 10's bound run, every eval
+     view listed, each split's mean PSNR within 1e-3 dB of phase 10's
+     `evaluate_splits`, the worst triples written.
 The `kernels` line is the last but one, the card's name and power limit
 the line before it. The last line is {"ok": true, "device": {...}}.
 Nothing here imports JAX.
@@ -1116,7 +1136,7 @@ def recovery_phase(dev, work, bound_iterations=BOUND_ITERATIONS,
     k1.launches = k2.launches = 0
     t0 = time.perf_counter()
     model, _, info = loop.training(cfg, opt, pipe, testing_iterations={it},
-                                   device=dev)
+                                   saving_iterations={it}, device=dev)
     sync()
     wall = time.perf_counter() - t0
     launches = {"bound": {"blend_fwd": k1.launches, "blend_bwd": k2.launches}}
@@ -2493,6 +2513,348 @@ def parallel_phase(dev, work, width, height, n_per_face=10,
     return out
 
 
+SORT_RENDERS = 8              # phase 13: served renders (2 per timestep)
+SORT_STEPS = 10               # phase 13: timed train steps (after 2 warm-up)
+SORT_CLI_ITERATIONS = 30      # phase 13: `train --binning sort`
+TOL_SORT_IMAGE = 1e-5         # sort vs dense image, max|d| (JAX's own gate)
+TOL_SORT_FLIP = 1e-3          # on the values where an alpha flipped at 1/255
+TOL_SORT_GRAD = 2e-4          # sort vs dense step, per gradient leaf
+DIAG_TOL_DB = 1e-3            # diag_eval_views vs evaluate_splits, per split
+
+
+def kernel_bound(inst, ranges, args, work, backward=False) -> dict:
+    """K1's (or, with `backward`, K2's) roofline bound on one stream from
+    the plain version's work counts: the bytes it must move (stream and
+    ranges in, the image planes; K2 also the (K, 9) gradient out) over the
+    memory rate, its FP32 operations and exponentials over their peak
+    rates, the larger of the two."""
+    width, height = args[1], args[2]
+    nbytes = ((2 if backward else 1) * inst.numel() + ranges.numel()
+              + (8 if backward else 4) * width * height) * 4
+    flops = (FLOPS_PER_PAIR * work["pairs"] + FLOPS_PER_EXP_PAIR * work["exps"]
+             + (BWD_FLOPS_PER_BLENDED if backward else FLOPS_PER_BLENDED)
+             * work["blended"])
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = max(flops / PEAK_FP32_FLOPS, work["exps"] / PEAK_SFU_OPS) * 1e3
+    return dict(bytes=nbytes, flops=flops, t_bytes=t_bytes, t_ops=t_ops,
+                ms=max(t_bytes, t_ops),
+                by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def sort_phase(dev, work, dense, compare, compare_bwd, cotangents,
+               renders=SORT_RENDERS, steps=SORT_STEPS,
+               cli_iterations=SORT_CLI_ITERATIONS, n_per_face=10):
+    """Phase 13: the sort binning (`--binning sort`) on the card, under
+    the directory `work` of phases 8 and 10 (see the module docstring).
+    `dense` holds phase 5's and 7's dense numbers of this call;
+    `compare`, `compare_bwd` and `cotangents` are phase 3's kernel checks.
+    Returns the numbers it measured; raises on any failure."""
+    from gaussianavatars_torch import kernels
+    from gaussianavatars_torch.benchmark import (
+        bench_camera, blend_inputs, bound_bench_scene, make_bound_bench_model,
+    )
+    from gaussianavatars_torch.config import OptimizationConfig, PipelineConfig
+    from gaussianavatars_torch.ops import tile_blend
+    from gaussianavatars_torch.profile_render import range_stats
+    from gaussianavatars_torch.tools import diag_eval_views
+    from gaussianavatars_torch.tools import parity_vs_reference as parity
+    from gaussianavatars_torch.train import loop, optim
+
+    k1, k2 = tile_blend.blend_image_cuda, tile_blend.blend_image_bwd_cuda
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def timed(fn, n):
+        """(results, device ms per call: CUDA events, host clock on the
+        CPU) of n calls fn(i)."""
+        sync()
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        res = [fn(i) for i in range(n)]
+        if cuda:
+            end.record()
+        sync()
+        ms = (start.elapsed_time(end) if cuda
+              else 1e3 * (time.perf_counter() - t0))
+        return res, ms / n
+
+    out = {}
+    model = make_bound_bench_model(n_per_face=n_per_face, device=dev)
+    cam = bench_camera(dense["width"], dense["height"], device=dev)
+    width, height = dense["width"], dense["height"]
+    sh, nt = model.active_sh_degree, model.num_timesteps
+    ca, bg = loop.camera_arrays(cam), torch.ones(3, device=dev)
+
+    # ---- (a) serving at full width ------------------------------------------
+    fns = {b: loop.make_render_fn(model, PipelineConfig(binning=b), width,
+                                  height, sh) for b in ("dense", "sort")}
+
+    def serve(binning):
+        return lambda i: fns[binning](model.params, model.flame_param,
+                                      model.binding, ca, bg, i % nt)
+
+    ref = [serve("dense")(t) for t in range(nt)]
+    for t in range(nt):                                   # warm-up
+        serve("sort")(t)
+    k1.launches = 0
+    outs, sort_ms = timed(serve("sort"), renders)
+    launches = {"render": k1.launches}
+    check(launches["render"] == renders,
+          f"K1 launched {launches['render']} times in {renders} sort renders")
+    # two rounds in turns: the host of the call moves both paths alike
+    sort_ms, dense_ms = [sort_ms], []
+    for _ in range(2):
+        dense_ms.append(timed(serve("dense"), renders)[1])
+        if len(sort_ms) < 2:
+            sort_ms.append(timed(serve("sort"), renders)[1])
+    flips, flip_err, worst = 0, 0.0, 0.0
+    for t in range(nt):
+        img, d_img = outs[t].image, ref[t].image
+        check(tuple(img.shape) == (3, height, width), f"shape {img.shape}")
+        check(bool(torch.isfinite(img).all()), f"timestep {t}: non-finite")
+        check(outs[t].instance_total > ref[t].instance_total,
+              f"timestep {t}: sort stream {outs[t].instance_total} not "
+              f"longer than the dense {ref[t].instance_total}")
+        d = (img - d_img).abs()
+        flipped = d > TOL_SORT_IMAGE
+        flips += int(flipped.sum())
+        if bool(flipped.any()):
+            flip_err = max(flip_err, float(d[flipped].max()))
+        worst = max(worst, float(d[~flipped].max()))
+    share = flips / (nt * 3 * width * height)
+    out["serve"] = dict(
+        renders=renders, ms_per_render=sort_ms, dense_ms_per_render=dense_ms,
+        instances=[o.instance_total for o in outs[:nt]],
+        dense_instances=[o.instance_total for o in ref],
+        max_abs_err=worst, flipped_values=flips, flipped_share=share,
+        flipped_max_abs_err=flip_err)
+    print(f"[sort] {renders} renders at {width}x{height} a round: "
+          f"{sort_ms} ms/render, dense {dense_ms} in turns with them "
+          f"({dense['render_ms']:.3f} in phase 5); instances "
+          f"{out['serve']['instances']} vs dense "
+          f"{out['serve']['dense_instances']}; image max|d| vs dense "
+          f"{worst:.3e} (limit {TOL_SORT_IMAGE:.0e}), {flips} flipped "
+          f"values (share {share:.2e}, max|d| {flip_err:.3e}, limit "
+          f"{TOL_SORT_FLIP:.0e})")
+    check(flip_err <= TOL_SORT_FLIP and share <= FLIP_SHARE,
+          f"sort vs dense: {flips} values beyond {TOL_SORT_IMAGE}, max|d| "
+          f"{flip_err}")
+
+    # ---- (b) training -------------------------------------------------------
+    opt_cfg = OptimizationConfig()
+    fresh = loop.initial_state(model)
+    flame_fixed = {k: v for k, v in model.flame_param.items()
+                   if k not in fresh.flame_tr}
+    lrs = loop.lr_pytree(opt_cfg, 1e-3, fresh.flame_tr,
+                         model.spatial_lr_scale or 1.0)
+    gt = torch.as_tensor(np.random.default_rng(2).random(
+        (3, height, width)).astype(np.float32), device=dev)
+    steps_fn = {b: loop.make_train_step(model, opt_cfg,
+                                        PipelineConfig(binning=b), width,
+                                        height, sh, nt)
+                for b in ("dense", "sort")}
+
+    def copy(state):
+        return optim.tree_map(
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x, state)
+
+    one = {b: steps_fn[b](copy(fresh), flame_fixed, model.binding, ca, gt,
+                          bg, 1, lrs) for b in ("dense", "sort")}
+    (d_state, d_losses, _), (s_state, s_losses, _) = one["dense"], one["sort"]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    grad_rel = {}
+    for k in d_state.params._fields:
+        grad_rel[k] = rel(getattr(s_state.mu["gauss"], k),
+                          getattr(d_state.mu["gauss"], k))
+    for k, v in d_state.mu["flame"].items():
+        grad_rel["flame_" + k] = rel(s_state.mu["flame"][k], v)
+    grad_rel["grad_accum"] = rel(s_state.grad_accum, d_state.grad_accum)
+    loss_rel = {k: abs(float(s_losses[k]) - float(v))
+                / max(abs(float(v)), 1e-30) for k, v in d_losses.items()}
+    print(f"[sort] one step vs dense: gradient max|d|/max|dense| "
+          f"{max(grad_rel.values()):.3e} (limit {TOL_SORT_GRAD:.0e}; "
+          + ", ".join(f"{k} {v:.1e}" for k, v in grad_rel.items())
+          + f"), losses rel {max(loss_rel.values()):.2e} (limit 1e-05)")
+    for k, v in grad_rel.items():
+        check(v <= TOL_SORT_GRAD, f"sort step gradient {k}: {v}")
+    for k, v in loss_rel.items():
+        check(v <= 1e-5, f"sort step loss {k}: rel {v}")
+    check(torch.equal(s_state.denom, d_state.denom)
+          and torch.equal(s_state.max_radii2d, d_state.max_radii2d),
+          "sort step statistics differ from the dense step's")
+
+    box = {b: copy(fresh) for b in ("dense", "sort")}
+
+    def train(binning):
+        def run(i):
+            box[binning], losses, _ = steps_fn[binning](
+                box[binning], flame_fixed, model.binding, ca, gt, bg, i % nt,
+                lrs)
+            return losses
+        return run
+
+    for i in range(2):                                        # warm-up
+        train("sort")(i)
+    k1.launches = k2.launches = 0
+    losses, step_ms = timed(train("sort"), steps)
+    launches["step"] = {"blend_fwd": k1.launches, "blend_bwd": k2.launches}
+    step_ms, dense_step_ms = [step_ms], []
+    for _ in range(2):
+        dense_step_ms.append(timed(train("dense"), steps)[1])
+        if len(step_ms) < 2:
+            step_ms.append(timed(train("sort"), steps)[1])
+    check(launches["step"] == {"blend_fwd": steps, "blend_bwd": steps},
+          f"{steps} sort steps launched {launches['step']}")
+    for lo in losses:
+        check(all(bool(torch.isfinite(v)) for v in lo.values()),
+              "non-finite sort step loss")
+    out["train"] = dict(steps=steps, ms_per_step=step_ms,
+                        dense_ms_per_step=dense_step_ms,
+                        grad_rel=grad_rel, loss_rel=loss_rel)
+    print(f"[sort] {steps} train steps a round: {step_ms} ms/step, dense "
+          f"{dense_step_ms} in turns with them ({dense['step_ms']:.3f} in "
+          f"phase 6); launches {launches['step']}")
+
+    # ---- (c) the kernels on the sort stream ---------------------------------
+    scene = bound_bench_scene(model, 0)
+    streams = {b: blend_inputs(scene, cam, 32, binning=b)
+               for b in ("dense", "sort")}
+    inst, ranges, args = streams["sort"]
+    k1_err = compare("sort stream 802x550", inst, ranges, args, TOL_BENCH)
+    k2_err, k2_rel, k2_plain_ms = compare_bwd(
+        "sort stream 802x550", inst, ranges, args, TOL_BWD_BENCH, 200)
+    stream = {}
+    for b, (s_inst, s_ranges, s_args) in streams.items():
+        color, trans = k1(s_inst, s_ranges, *s_args)
+        g_c, g_t = cotangents(s_args, 200)
+        row = dict(range_stats(s_ranges))
+        row["k1_ms"] = cuda_ms(lambda: k1(s_inst, s_ranges, *s_args), 50)
+        row["k2_ms"] = cuda_ms(lambda: k2(s_inst, s_ranges, *s_args, color,
+                                          trans, g_c, g_t), 50)
+        if b == "sort":
+            _, row["k1_plain_ms"] = timed(
+                lambda i: tile_blend.blend_image_plain(s_inst, s_ranges,
+                                                       *s_args), 1)
+            row["k2_plain_ms"] = k2_plain_ms
+            _, fwork = tile_blend.blend_image_plain(
+                s_inst, s_ranges, *s_args, count_work=True)
+            _, bwork = tile_blend.blend_image_bwd_plain(
+                s_inst, s_ranges, *s_args, color, trans, g_c, g_t,
+                count_work=True)
+            for k, counts, backward in (("k1", fwork, False),
+                                        ("k2", bwork, True)):
+                bound = kernel_bound(s_inst, s_ranges, s_args, counts,
+                                     backward)
+                row[k + "_bound_ms"], row[k + "_bound_by"] = (bound["ms"],
+                                                              bound["by"])
+            row["plain_work"] = fwork
+            for name, run in (
+                    ("blend_fwd", lambda lib: k1(s_inst, s_ranges, *s_args,
+                                                 lib=lib)),
+                    ("blend_bwd", lambda lib: k2(s_inst, s_ranges, *s_args,
+                                                 color, trans, g_c, g_t,
+                                                 lib=lib))):
+                lib = kernels.load(name, COUNTING)
+                read = getattr(lib, name + "_counts")
+                cnt = (ctypes.c_ulonglong * 3)()
+                check(read(cnt) == 0, f"{name}_counts failed")
+                run(lib)
+                check(read(cnt) == 0, f"{name}_counts failed")
+                row[name] = {"cull_tests": cnt[0],
+                             "warp_slots_walked": cnt[1],
+                             "pixel_evaluations": cnt[2]}
+                check(fwork["blended"] <= cnt[2] <= fwork["pairs"],
+                      f"{name} made {cnt[2]} pixel evaluations on the sort "
+                      f"stream; the pixels need {fwork['blended']} to "
+                      f"{fwork['pairs']}")
+        stream[b] = row
+    out["kernels"] = dict(k1_err=k1_err, k2_err=k2_err, k2_rel=k2_rel)
+    out["stream"] = stream
+    print(json.dumps(dict(what="sort_stream", **stream)))
+
+    # ---- (d) the train entry point with --binning sort ----------------------
+    cli_dir = os.path.join(work, "sort_cli")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "gaussianavatars_torch.train", "-s",
+         os.path.join(work, "data"), "-m", cli_dir, "--bind_to_mesh",
+         "--eval", "--iterations", str(cli_iterations), "--save_iterations",
+         str(cli_iterations), "--binning", "sort", "--port", "0",
+         "--device", dev.type],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO,
+                           FLAME_ASSET_DIR=os.path.join(work, "assets")),
+        capture_output=True, text=True, timeout=600)
+    out["cli_s"] = time.perf_counter() - t0
+    check(res.returncode == 0, f"train --binning sort exited "
+          f"{res.returncode}: {res.stderr[-3000:]}")
+    check(os.path.exists(os.path.join(
+        cli_dir, "point_cloud", f"iteration_{cli_iterations}",
+        "point_cloud.ply")), "train --binning sort wrote no PLY")
+    print(f"[sort] python -m gaussianavatars_torch.train --binning sort: "
+          f"{cli_iterations} iterations in {out['cli_s']:.1f} s (process "
+          f"included)")
+
+    # ---- (e) the parity tool ------------------------------------------------
+    def tool(argv):
+        t0 = time.perf_counter()
+        try:
+            parity.main(argv + ["--device", dev.type])
+        except SystemExit as exc:
+            check(exc.code == 0, f"parity_vs_reference {argv} exited "
+                  f"{exc.code}")
+        return round(time.perf_counter() - t0, 2)
+
+    os.environ["FLAME_ASSET_DIR"] = os.path.join(work, "assets")
+    ply = os.path.join(work, "io", "point_cloud", "iteration_1",
+                       "point_cloud.ply")
+    dumps = {b: os.path.join(work, f"parity_{b}") for b in ("dense", "sort")}
+    out["parity_s"] = {"check_assets": tool(
+        ["--check_assets", os.path.join(work, "assets")])}
+    if cuda:
+        out["parity_s"]["self_check"] = tool(["--self_check"])
+    for b, d in dumps.items():
+        out["parity_s"][f"dump_{b}"] = tool(
+            ["--point_path", ply, "--out", d, "--binning", b])
+    out["parity_s"]["compare"] = tool(["--compare", dumps["dense"],
+                                       dumps["sort"]])
+    print(f"[sort] parity_vs_reference: {out['parity_s']} s")
+
+    # ---- (f) the per-view diagnostics ---------------------------------------
+    diag_dir = os.path.join(work, "diag")
+    t0 = time.perf_counter()
+    rows = diag_eval_views.main(["--run", os.path.join(work, "bound"),
+                                 "--out", diag_dir, "--device", dev.type])
+    out["diag_s"] = round(time.perf_counter() - t0, 2)
+    check(len(rows) == dense["eval_views"],
+          f"diag_eval_views listed {len(rows)} views of "
+          f"{dense['eval_views']}")
+    means = {}
+    for split, want in dense["psnr_last"].items():
+        means[split] = float(np.mean([r[3] for r in rows if r[0] == split]))
+        check(abs(means[split] - want) <= DIAG_TOL_DB,
+              f"diag_eval_views {split} mean PSNR {means[split]} vs "
+              f"evaluate_splits {want}")
+    written = sorted(os.listdir(diag_dir))
+    check(len(written) == 3 * min(4, len(rows)),
+          f"diag_eval_views wrote {written}")
+    out["diag"] = dict(views=len(rows), mean_psnr=means,
+                       eval_psnr=dense["psnr_last"], files=len(written))
+    print(f"[sort] diag_eval_views: {len(rows)} views, mean PSNR {means} "
+          f"vs evaluate_splits {dense['psnr_last']} (limit {DIAG_TOL_DB} "
+          f"dB); {len(written)} PNGs in {out['diag_s']} s")
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2830,23 +3192,17 @@ def main(argv=None) -> int:
 
     lap("training")
     # ---- 7. the kernels at the bench shapes ---------------------------------
-    width, height = b_args[1], b_args[2]
     k1_ms = cuda_ms(lambda: tile_blend.blend_image(b_inst, b_ranges, *b_args),
                     50)
     plain_ms = cuda_ms(lambda: tile_blend.blend_image_plain(
         b_inst, b_ranges, *b_args), 1)
     _, work = tile_blend.blend_image_plain(b_inst, b_ranges, *b_args,
                                            count_work=True)
-    nbytes = (b_inst.numel() + b_ranges.numel() + 4 * width * height) * 4
-    flops = (FLOPS_PER_PAIR * work["pairs"] + FLOPS_PER_EXP_PAIR * work["exps"]
-             + FLOPS_PER_BLENDED * work["blended"])
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = max(flops / PEAK_FP32_FLOPS, work["exps"] / PEAK_SFU_OPS) * 1e3
-    bound_ms = max(t_bytes, t_ops)
+    k1_bound = kernel_bound(b_inst, b_ranges, b_args, work)
     print(f"[K1] bench: {b_inst.shape[0]} instances, {k1_ms:.4f} ms kernel, "
-          f"{plain_ms:.2f} ms plain; work {work}; bytes {nbytes}, "
-          f"fp32 flops {flops}; bound {bound_ms:.4f} ms "
-          f"(bytes {t_bytes:.4f}, ops {t_ops:.4f})")
+          f"{plain_ms:.2f} ms plain; work {work}; bytes {k1_bound['bytes']}, "
+          f"fp32 flops {k1_bound['flops']}; bound {k1_bound['ms']:.4f} ms "
+          f"(bytes {k1_bound['t_bytes']:.4f}, ops {k1_bound['t_ops']:.4f})")
 
     b_color, b_trans = tile_blend.blend_image_cuda(b_inst, b_ranges, *b_args)
     b_gc, b_gt = cotangents(b_args, 100)
@@ -2856,20 +3212,12 @@ def main(argv=None) -> int:
         b_inst, b_ranges, *b_args, b_color, b_trans, b_gc, b_gt,
         count_work=True)
     # stream, ranges and eight image planes in; the (K, 9) gradient out
-    k2_bytes = (2 * b_inst.numel() + b_ranges.numel()
-                + 8 * width * height) * 4
-    k2_flops = (FLOPS_PER_PAIR * bwork["pairs"]
-                + FLOPS_PER_EXP_PAIR * bwork["exps"]
-                + BWD_FLOPS_PER_BLENDED * bwork["blended"])
-    k2_t_bytes = k2_bytes / PEAK_HBM_BYTES * 1e3
-    k2_t_ops = max(k2_flops / PEAK_FP32_FLOPS,
-                   bwork["exps"] / PEAK_SFU_OPS) * 1e3
-    k2_bound_ms = max(k2_t_bytes, k2_t_ops)
+    k2_bound = kernel_bound(b_inst, b_ranges, b_args, bwork, backward=True)
     print(f"[K2] bench: {b_inst.shape[0]} slots, {k2_ms:.4f} ms kernel "
           f"(with the output's zero fill), {k2_plain_ms:.2f} ms plain; "
-          f"work {bwork}; bytes {k2_bytes}, fp32 flops {k2_flops}; bound "
-          f"{k2_bound_ms:.4f} ms (bytes {k2_t_bytes:.4f}, ops "
-          f"{k2_t_ops:.4f})")
+          f"work {bwork}; bytes {k2_bound['bytes']}, fp32 flops "
+          f"{k2_bound['flops']}; bound {k2_bound['ms']:.4f} ms (bytes "
+          f"{k2_bound['t_bytes']:.4f}, ops {k2_bound['t_ops']:.4f})")
 
     lap("kernels_at_bench")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2905,6 +3253,18 @@ def main(argv=None) -> int:
                         for r in parallel_line["ranks"])
         print(json.dumps(dict(what="parallel", **parallel_line)))
         lap("parallel")
+        # ---- 13. the sort binning -------------------------------------------
+        sort_line = sort_phase(dev, workdir, dict(
+            width=WIDTH, height=HEIGHT, render_ms=ms, step_ms=step_ms,
+            eval_views=recovery_line["bound"]["eval_views"],
+            psnr_last=recovery_line["bound"]["psnr_last"]),
+            compare, compare_bwd, cotangents)
+        errs.append(sort_line["kernels"]["k1_err"])
+        bwd_errs.append((sort_line["kernels"]["k2_err"],
+                         sort_line["kernels"]["k2_rel"], 0.0))
+        print(json.dumps(dict(what="sort", **{
+            k: v for k, v in sort_line.items() if k != "stream"})))
+        lap("sort")
     finally:
         if saved_env is None:
             os.environ.pop("FLAME_ASSET_DIR", None)
@@ -2938,6 +3298,7 @@ def main(argv=None) -> int:
         what="pairs", **walked, plain=work,
         whole_tile_pairs=int(b_inst.shape[0]) * b_args[3] ** 2)))
 
+    sort_stream = sort_line["stream"]["sort"]
     # no single PyTorch call computes either function (a depth-sorted
     # front-to-back blend with an early stop, or its VJP), so no library_ms
     kernel_line = {"kernels": [{
@@ -2975,12 +3336,24 @@ def main(argv=None) -> int:
             "bound_eval_views": recovery_line["bound"]["eval_views"],
             "unbound_iterations": UNBOUND_ITERATIONS,
             "unbound_eval_views": recovery_line["unbound"]["eval_views"]},
+        "sort_launches": {"render": sort_line["launches"]["render"],
+                          "step": sort_line["launches"]["step"]["blend_fwd"]},
+        "sort_calls": {"renders": SORT_RENDERS, "steps": SORT_STEPS},
+        "sort_ms": sort_stream["k1_ms"],
+        "sort_dense_ms": sort_line["stream"]["dense"]["k1_ms"],
+        "sort_plain_ms": sort_stream["k1_plain_ms"],
+        "sort_bound_ms": sort_stream["k1_bound_ms"],
+        "sort_bound_by": sort_stream["k1_bound_by"],
+        "sort_slots": sort_stream["slots"],
+        "sort_longest_tile": sort_stream["max"],
+        "sort_pixel_evaluations":
+            sort_stream["blend_fwd"]["pixel_evaluations"],
         "max_abs_err": max(errs),
         "pixel_evaluations": walked["blend_fwd"]["pixel_evaluations"],
         "ms": k1_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": k1_bound["ms"],
+        "bound_by": k1_bound["by"],
         "library_ms": None,
     }, {
         "name": "blend_bwd",
@@ -3000,13 +3373,22 @@ def main(argv=None) -> int:
                                   viewer_line["launches"].items()},
         "parallel_launches": {
             k: v["blend_bwd"] for k, v in parallel_line["launches"].items()},
+        "sort_launches": {"step": sort_line["launches"]["step"]["blend_bwd"]},
+        "sort_calls": {"steps": SORT_STEPS},
+        "sort_ms": sort_stream["k2_ms"],
+        "sort_dense_ms": sort_line["stream"]["dense"]["k2_ms"],
+        "sort_plain_ms": sort_stream["k2_plain_ms"],
+        "sort_bound_ms": sort_stream["k2_bound_ms"],
+        "sort_bound_by": sort_stream["k2_bound_by"],
+        "sort_pixel_evaluations":
+            sort_stream["blend_bwd"]["pixel_evaluations"],
         "max_abs_err": max(e[0] for e in bwd_errs),
         "max_column_rel_err": max(e[1] for e in bwd_errs),
         "pixel_evaluations": walked["blend_bwd"]["pixel_evaluations"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
-        "bound_ms": k2_bound_ms,
-        "bound_by": "bytes" if k2_t_bytes >= k2_t_ops else "operations",
+        "bound_ms": k2_bound["ms"],
+        "bound_by": k2_bound["by"],
         "library_ms": None,
     }]}
     lap("counting_build")

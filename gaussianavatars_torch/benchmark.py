@@ -44,7 +44,6 @@ from gaussianavatars_torch.models.gaussians import (
     inverse_sigmoid,
     world_space_gaussians,
 )
-from gaussianavatars_torch.ops.binning_dense import bin_gaussians_dense
 from gaussianavatars_torch.ops.instance_pack import (
     gather_instances,
     pack_projected,
@@ -53,6 +52,7 @@ from gaussianavatars_torch.ops.projection import (
     CameraParams,
     project_gaussians,
 )
+from gaussianavatars_torch.ops.rasterize_tiles import bin_projected
 from gaussianavatars_torch.ops.transforms import (
     camera_center_from_world_view,
     full_projection,
@@ -305,18 +305,17 @@ def make_bound_bench_model(sh_degree=SH_DEGREE, n_per_face=10, seed=0,
 
 def blend_inputs(scene: dict, camera: CameraParams, tile_size: int,
                  sh_degree: int = SH_DEGREE, tile_row_start: int = 0,
-                 tile_rows=None):
+                 tile_rows=None, binning: str = "dense"):
     """The tile blend's inputs for a scene dict (`means3d`, `scales`,
     `quats`, `opacities`, `shs`): the (K, 9) stream, the (T, 2) ranges and
     the blend's remaining arguments (py_offset, width, height, tile_size),
-    as `ops/rasterize_tiles.py::rasterize` hands them to `blend_image`."""
+    as `ops/rasterize_tiles.py::rasterize` hands them to `blend_image`
+    under `binning` ("dense" or "sort")."""
     proj = project_gaussians(scene["means3d"], scene["scales"],
                              scene["quats"], scene["opacities"], scene["shs"],
                              sh_degree, camera)
-    b = bin_gaussians_dense(
-        proj.means2d, proj.depths, proj.radii, proj.valid, proj.conics,
-        proj.tau, proj.ext_x, proj.ext_y, camera.width, camera.height,
-        tile_size, tile_row_start, tile_rows)
+    b = bin_projected(proj, camera.width, camera.height, tile_size,
+                      tile_row_start, tile_rows, binning)
     inst = gather_instances(pack_projected(
         proj.means2d, proj.conics, proj.colors, proj.opacities),
         b.gaussian_ids)

@@ -93,8 +93,15 @@ class PipelineConfig:
     debug: `training` stops at a non-finite loss after writing the state
       to `snapshot_fw_<iteration>.npz` (set from `--debug_from` on).
     tile_size: square pixel tile of the blend (16 or 32).
-    binning: instance-stream builder; "dense" (the exact ellipse-culled
-      duplicated-key sort of `ops/binning_dense.py`) is the only one ported.
+    binning: instance-stream builder, both ported: "dense" (the exact
+      ellipse-culled duplicated-key sort of `ops/binning_dense.py`) or
+      "sort" (the square rect, the r2_max disc cull and one stable sort by
+      tile of `ops/binning.py`; a longer stream, the same image). As
+      `--binning` it reaches `train`, `render` and `fps_benchmark_dataset`
+      through `add_to_parser`, and through `train` the network viewer it
+      serves. `local_viewer` and `fps_benchmark_demo` build their own
+      `PipelineConfig()` (dense), as the JAX package's scripts do; `metrics`
+      and `remote_viewer` render nothing.
     data_parallel: camera-batch groups over the mesh's 'data' axis.
     render_parallel: Gaussian / tile-row shards over its 'prim' axis (the
       mesh has data_parallel * render_parallel ranks; `train/loop.py`).

@@ -7,7 +7,7 @@ The GPU form is the reference CUDA rasterizer's duplicated-key sort
   1. gaussians are depth-sorted once (stable, invalid ones last); the depth
      RANK orders instances within a tile
   2. each gaussian's tile rect from its per-axis extents
-     (ops/binning.compute_tile_rects_ext in the JAX package)
+     (ops/binning.py::compute_tile_rects_ext, as in the JAX package)
   3. every gaussian is expanded over its rect (one slot per covered tile)
   4. the exact ellipse-box cull drops a slot whose tile box holds no pixel
      with q <= tau, i.e. no pixel the blend could accept (image-exact)
@@ -26,6 +26,11 @@ from typing import NamedTuple
 
 import torch
 
+from gaussianavatars_torch.ops.binning import (
+    compute_tile_rects_ext,
+    tile_grid,
+)
+
 
 class DenseBinning(NamedTuple):
     gaussian_ids: torch.Tensor  # [total] int64 gaussian per stream slot
@@ -34,37 +39,6 @@ class DenseBinning(NamedTuple):
     total: int                  # stream length
     num_tiles_x: int
     num_tiles_y: int
-
-
-def tile_grid(width: int, height: int, tile_size: int) -> tuple[int, int]:
-    return (-(-width // tile_size), -(-height // tile_size))
-
-
-def compute_tile_rects_ext(means2d, ext_x, ext_y, radii, width, height,
-                           tile_size):
-    """Tile AABB (x0, y0, x1, y1) int64 from per-axis half extents,
-    intersected with the reference square rect of `radii` (CUDA getRect:
-    floor((p - r)/ts) .. floor((p + r + ts - 1)/ts), clipped to the grid).
-    Zero-extent gaussians get empty rects."""
-    ntx, nty = tile_grid(width, height, tile_size)
-    mx, my = means2d[:, 0], means2d[:, 1]
-
-    def span(p, e, r, n):
-        lo_e = torch.clamp(torch.floor((p - e) / tile_size), 0, n)
-        hi_e = torch.clamp(torch.floor((p + e) / tile_size) + 1, 0, n)
-        lo_r = torch.clamp(torch.floor((p - r) / tile_size), 0, n)
-        hi_r = torch.clamp(
-            torch.floor((p + r + tile_size - 1) / tile_size), 0, n)
-        return (torch.maximum(lo_e, lo_r).to(torch.int64),
-                torch.minimum(hi_e, hi_r).to(torch.int64))
-
-    r = radii.to(means2d.dtype)
-    x0, x1 = span(mx, ext_x, r, ntx)
-    y0, y1 = span(my, ext_y, r, nty)
-    empty = (ext_x <= 0.0) | (ext_y <= 0.0)
-    x1 = torch.where(empty, x0, x1)
-    y1 = torch.where(empty, y0, y1)
-    return x0, y0, x1, y1
 
 
 def _box_qmin(ax, bx, ay, by, cxx, cxy, cyy, rx, ry):

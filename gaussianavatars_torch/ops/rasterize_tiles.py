@@ -3,8 +3,10 @@
 through autograd.
 
   projection  ops/projection.py     per-gaussian elementwise torch
-  binning     ops/binning_dense.py  duplicated-key sort, exact shapes; its
-                                    inputs are detached (no gradient)
+  binning     ops/binning_dense.py  duplicated-key sort, exact shapes
+              ops/binning.py        (`binning="sort"`) rect expansion and one
+                                    stable sort by tile; the inputs of both
+                                    are detached (no gradient)
   gather      ops/instance_pack.py  one (K, 9) row gather by gaussian id;
                                     its transpose is autograd's index_add_
   blend       ops/tile_blend.py     kernels K1 / K2 on CUDA, plain torch on
@@ -17,6 +19,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from gaussianavatars_torch.ops.binning import bin_gaussians
 from gaussianavatars_torch.ops.binning_dense import bin_gaussians_dense
 from gaussianavatars_torch.ops.instance_pack import (
     gather_instances,
@@ -28,6 +31,25 @@ from gaussianavatars_torch.ops.projection import (
     project_gaussians,
 )
 from gaussianavatars_torch.ops.tile_blend import blend_image
+
+
+def bin_projected(proj: ProjectedGaussians, width: int, height: int,
+                  tile_size: int, tile_row_start: int = 0,
+                  tile_rows: Optional[int] = None, binning: str = "dense"):
+    """The instance stream of projected Gaussians: `bin_gaussians_dense`
+    ("dense") or `bin_gaussians` ("sort") of their detached inputs."""
+    if binning == "sort":
+        return bin_gaussians(
+            proj.means2d.detach(), proj.depths.detach(), proj.radii,
+            proj.valid, proj.r2_max.detach(), width, height, tile_size,
+            tile_row_start, tile_rows)
+    if binning == "dense":
+        return bin_gaussians_dense(
+            proj.means2d.detach(), proj.depths.detach(), proj.radii,
+            proj.valid, proj.conics.detach(), proj.tau.detach(),
+            proj.ext_x.detach(), proj.ext_y.detach(), width, height,
+            tile_size, tile_row_start, tile_rows)
+    raise ValueError(f"binning must be 'dense' or 'sort', not {binning!r}")
 
 
 class RenderOutput(NamedTuple):
@@ -50,6 +72,7 @@ def rasterize(
     cov3d_precomp: Optional[torch.Tensor] = None,
     mark: Optional[Callable[[str], None]] = None,
     projected: Optional[ProjectedGaussians] = None,
+    binning: str = "dense",
 ) -> RenderOutput:
     """Tile-based splat render (reference gaussian_renderer/__init__.py:86-94).
 
@@ -68,7 +91,13 @@ def rasterize(
     render-parallel path of `parallel/sharded.py` projects each shard where
     it lives and gathers the set); the first five arguments, the
     projection options and `means2d_offset` are then not read, nor is
-    `projected.r2_max`.
+    `projected.r2_max` under the dense binning.
+
+    `binning` picks the instance stream: "dense" (`bin_gaussians_dense`,
+    the exact ellipse-box cull) or "sort" (`bin_gaussians`, the square
+    rect and the r2_max disc cull; a longer stream, the same image). The
+    JAX signature defaults to "sort"; every caller of the port relies on
+    the dense stream, so "dense" is the default here.
     """
     proj = projected
     if proj is None:
@@ -78,18 +107,15 @@ def rasterize(
             colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp)
     if mark:
         mark("projection")
-    binning = bin_gaussians_dense(
-        proj.means2d.detach(), proj.depths.detach(), proj.radii, proj.valid,
-        proj.conics.detach(), proj.tau.detach(), proj.ext_x.detach(),
-        proj.ext_y.detach(), camera.width, camera.height, tile_size,
-        tile_row_start, tile_rows)
-    ranges = torch.stack([binning.tile_starts, binning.tile_ends], dim=-1)
+    bins = bin_projected(proj, camera.width, camera.height, tile_size,
+                         tile_row_start, tile_rows, binning)
+    ranges = torch.stack([bins.tile_starts, bins.tile_ends], dim=-1)
     if mark:
         mark("binning")
     inst = gather_instances(
         pack_projected(proj.means2d, proj.conics, proj.colors,
                        proj.opacities),
-        binning.gaussian_ids)
+        bins.gaussian_ids)
     if mark:
         mark("pack_gather")
     slab_h = camera.height if tile_rows is None else tile_rows * tile_size
@@ -102,4 +128,4 @@ def rasterize(
         mark("composite")
     return RenderOutput(image=image, transmittance=trans, radii=proj.radii,
                         visibility=proj.valid,
-                        instance_total=binning.total)
+                        instance_total=bins.total)

@@ -8,7 +8,7 @@ the JAX package:
   phase 1 (Gaussian-sharded): the binding chain and the EWA projection run
       on each rank's contiguous shard of the Gaussians
   exchange: an all-gather of the projected Gaussians (`GatherRows`) in rank
-      order, so the gathered set keeps the global order and the dense
+      order, so the gathered set keeps the global order and either
       binning's stable depth sort breaks ties as on one device
   phase 2 (tile-sharded): each rank bins and blends only its window of
       ceil(nty / n_prim) tile rows (kernel K1 on a slab with a row offset,
@@ -120,31 +120,33 @@ def all_reduce(tensors: list, mesh: Mesh, axis: str, op: str = "sum"):
 def _gather_projected(proj: ProjectedGaussians, rows: int,
                       mesh: Mesh) -> ProjectedGaussians:
     """Every rank's projected shard, in rank order: the differentiable
-    (means2d, conics, colors, opacities) in one gather, the binning's
-    inputs (depths, tau, extents, radii, valid) in another. Padding rows
-    come out invalid with radius 0. `r2_max` is not gathered (None)."""
+    (means2d, conics, colors, opacities) in one gather, the binnings'
+    inputs (depths, tau, extents, radii, valid, r2_max) in another.
+    Padding rows come out invalid with radius 0."""
     diff = torch.cat([proj.means2d, proj.conics, proj.colors,
                       proj.opacities[:, None]], dim=1)
     with torch.no_grad():
         aux = torch.stack([proj.depths, proj.tau, proj.ext_x, proj.ext_y,
                            proj.radii.to(torch.float32),
-                           proj.valid.to(torch.float32)], dim=1)
+                           proj.valid.to(torch.float32), proj.r2_max], dim=1)
         aux = gather_rows(aux, rows, mesh)
     diff = gather_rows(diff, rows, mesh)
     return ProjectedGaussians(
         means2d=diff[:, 0:2], depths=aux[:, 0], conics=diff[:, 2:5],
         colors=diff[:, 5:8], opacities=diff[:, 8],
         radii=aux[:, 4].to(torch.int32), valid=aux[:, 5] > 0.5,
-        r2_max=None, ext_x=aux[:, 2], ext_y=aux[:, 3], tau=aux[:, 1])
+        r2_max=aux[:, 6], ext_x=aux[:, 2], ext_y=aux[:, 3], tau=aux[:, 1])
 
 
 def _gathered_render(mesh: Mesh, params: GaussianParams, binding, frames,
                      camera, bg, sh_degree: int, tile_size: int,
-                     rows_per: int, rows: int, means2d_offset=None):
-    """Project the local shard, gather the projected set, bin and blend this
-    rank's window of `rows_per` tile rows. Returns (slab [3, rows_per *
-    tile_size, W], the local ProjectedGaussians, the slab's instance total,
-    the local [n, 1] face scale or None)."""
+                     rows_per: int, rows: int, means2d_offset=None,
+                     binning: str = "dense"):
+    """Project the local shard, gather the projected set, bin (`binning`,
+    as `rasterize`) and blend this rank's window of `rows_per` tile rows.
+    Returns (slab [3, rows_per * tile_size, W], the local
+    ProjectedGaussians, the slab's instance total, the local [n, 1] face
+    scale or None)."""
     means3d, scales, quats, opac, shs, face_scale = world_space_gaussians(
         params, binding, frames, return_face_scale=True)
     proj = project_gaussians(means3d, scales, quats, opac, shs, sh_degree,
@@ -152,7 +154,7 @@ def _gathered_render(mesh: Mesh, params: GaussianParams, binding, frames,
     out = rasterize(None, None, None, None, None, sh_degree, camera, bg,
                     tile_size=tile_size,
                     tile_row_start=mesh.prim_index * rows_per,
-                    tile_rows=rows_per,
+                    tile_rows=rows_per, binning=binning,
                     projected=_gather_projected(proj, rows, mesh))
     return out.image, proj, out.instance_total, face_scale
 
@@ -169,14 +171,16 @@ def _rows_per(width: int, height: int, tile_size: int, mesh: Mesh) -> int:
 
 
 def make_sharded_render(mesh: Mesh, width: int, height: int, sh_degree: int,
-                        tile_size: int = 32, bound: bool = True):
+                        tile_size: int = 32, bound: bool = True,
+                        binning: str = "dense"):
     """Single-camera render sharded over the 'prim' axis.
 
     Returns render(params, binding, frames, cam, bg) -> [3, H, W], the same
     image on every rank: `params` (GaussianParams) and `binding` are the
     full, replicated model (binding None when not `bound`); each rank
     projects its shard of them. `frames` are the driven mesh's FaceFrames
-    (None unbound), `cam` a `train/loop.py::CameraArrays`.
+    (None unbound), `cam` a `train/loop.py::CameraArrays`. `binning`
+    ("dense" or "sort") picks the slab's instance stream, as in `rasterize`.
     """
     rows_per = _rows_per(width, height, tile_size, mesh)
 
@@ -188,7 +192,7 @@ def make_sharded_render(mesh: Mesh, width: int, height: int, sh_degree: int,
             mesh, GaussianParams(*[p[rows] for p in params]),
             binding[rows] if bound else None, frames if bound else None,
             _camera(cam, width, height), bg, sh_degree, tile_size, rows_per,
-            mesh.shard_rows(n))
+            mesh.shard_rows(n), binning=binning)
         return _gather_image(slab, mesh, height).contiguous()
 
     return render
@@ -203,7 +207,7 @@ def _make_step(mesh: Mesh, model, opt_cfg, pipe_cfg, width: int,
             "JAX package's)")
     bound = model.binding is not None
     n_prim = mesh.shape["prim"]
-    tile_size = pipe_cfg.tile_size
+    tile_size, binning = pipe_cfg.tile_size, pipe_cfg.binning
     rows_per = _rows_per(width, height, tile_size, mesh)
     opt = opt_cfg
 
@@ -227,7 +231,8 @@ def _make_step(mesh: Mesh, model, opt_cfg, pipe_cfg, width: int,
             slab, proj, instances, face_scale = _gathered_render(
                 mesh, params, binding if bound else None, frames, camera,
                 bg, sh_degree, tile_size, rows_per,
-                mesh.shard_rows(num_gaussians), means2d_offset=offset)
+                mesh.shard_rows(num_gaussians), means2d_offset=offset,
+                binning=binning)
             image = _gather_image(slab, mesh, height)
 
             # replication-weighted image terms (module docstring)

@@ -3,7 +3,7 @@ name over a few renders (or, with `--train`, train steps) of the bound
 bench avatar.
 
     python -m gaussianavatars_torch.profile_render [--renders 8] [--train]
-        [--tile-size 32]
+        [--tile-size 32] [--binning dense|sort]
 
 Device time comes from torch.profiler (CUPTI); the busy share is the summed
 device time of all kernels and copies over the host wall clock of the
@@ -11,10 +11,11 @@ profiled iterations (one CUDA stream, so kernels do not overlap). Prints a
 table of the top kernels and, last, one JSON summary line.
 
     python -m gaussianavatars_torch.profile_render --blend-stats
-        [--tile-size 32] [--baseline-csrc DIR] [--count]
+        [--tile-size 32] [--binning dense|sort] [--baseline-csrc DIR] [--count]
 
 measures the tile-blend kernels K1 and K2 alone on the bench stream
-(timestep 0), one JSON line each: the distribution of range lengths over
+(timestep 0; `--binning sort` builds the sort binning's longer stream),
+one JSON line each: the distribution of range lengths over
 the tiles; registers, shared memory and resident CTAs per SM; the kernels'
 times (CUDA events, the builds taken in turns within every round) for the
 library the port runs and for the kernels of another source directory
@@ -134,9 +135,9 @@ def blend_stats(args) -> list[dict]:
     model = make_bound_bench_model(device=dev)
     cam = bench_camera(WIDTH, HEIGHT, device=dev)
     inst, ranges, bargs = blend_inputs(bound_bench_scene(model, 0), cam,
-                                       args.tile_size)
+                                       args.tile_size, binning=args.binning)
     card = {"device": torch.cuda.get_device_name(dev),
-            "tile_size": args.tile_size}
+            "tile_size": args.tile_size, "binning": args.binning}
     lines = [dict(card, what="ranges", **range_stats(ranges))]
     print(json.dumps(lines[-1]), flush=True)
 
@@ -229,6 +230,8 @@ def main(argv=None) -> dict:
                         help="profile train steps instead of renders")
     parser.add_argument("--tile-size", type=int, default=32,
                         choices=(16, 32))
+    parser.add_argument("--binning", default="dense",
+                        choices=("dense", "sort"))
     parser.add_argument("--blend-stats", action="store_true",
                         help="measure kernels K1 and K2 on the bench stream")
     parser.add_argument("--baseline-csrc", default=None,
@@ -242,7 +245,7 @@ def main(argv=None) -> dict:
         return blend_stats(args)
 
     dev = resolve_device("cuda")
-    pipe = PipelineConfig(tile_size=args.tile_size)
+    pipe = PipelineConfig(tile_size=args.tile_size, binning=args.binning)
     model = make_bound_bench_model(device=dev)
     cam = camera_arrays(bench_camera(WIDTH, HEIGHT, device=dev))
     bg = torch.ones(3, device=dev)
@@ -296,6 +299,7 @@ def main(argv=None) -> dict:
     summary = {
         "device": torch.cuda.get_device_name(dev),
         "tile_size": args.tile_size,
+        "binning": args.binning,
         unit + "s": n,
         f"wall_ms_per_{unit}": 1e3 * wall_s / n,
         f"device_ms_per_{unit}": device_us / 1e3 / n,

@@ -84,9 +84,9 @@ def _camera(cam: CameraArrays, width: int, height: int) -> CameraParams:
 
 
 def _check_pipeline(pipe_cfg: PipelineConfig):
-    if pipe_cfg.binning != "dense":
-        raise NotImplementedError(
-            f"binning {pipe_cfg.binning!r} is not ported; use 'dense'")
+    if pipe_cfg.binning not in ("dense", "sort"):
+        raise ValueError(f"binning must be 'dense' or 'sort', not "
+                         f"{pipe_cfg.binning!r}")
 
 
 def _precomputed(pipe_cfg: PipelineConfig, camera: CameraParams, means3d,
@@ -110,7 +110,7 @@ def _precomputed(pipe_cfg: PipelineConfig, camera: CameraParams, means3d,
 
 
 def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
-                   sh_degree: int):
+                   sh_degree: int, differentiable: bool = False):
     """Inference render of `model` at width x height.
 
     Returns render(params, flame_param, binding, cam, bg, timestep,
@@ -121,12 +121,12 @@ def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
     parameters as they are. `pipe_cfg.convert_SHs_python` and
     `compute_cov3D_python` precompute the colours and covariances outside
     the rasterizer. `mark` is the per-stage hook of `rasterize`, also
-    called after "flame_frames" and "binding".
+    called after "flame_frames" and "binding". The render runs without
+    autograd unless `differentiable` (the parity tool's probe gradients).
     """
     _check_pipeline(pipe_cfg)
     bound = model.binding is not None
 
-    @torch.no_grad()
     def render(params, flame_param, binding, cam: CameraArrays,
                bg: torch.Tensor, timestep: int = 0, mark=None,
                scaling_modifier: float = 1.0) -> RenderOutput:
@@ -142,11 +142,12 @@ def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
             mark("binding")
         return rasterize(means3d, scales, quats, opac, shs, sh_degree,
                          camera, bg, tile_size=pipe_cfg.tile_size,
+                         binning=pipe_cfg.binning,
                          scaling_modifier=scaling_modifier, mark=mark,
                          **_precomputed(pipe_cfg, camera, means3d, scales,
                                         quats, shs, sh_degree))
 
-    return render
+    return render if differentiable else torch.no_grad()(render)
 
 
 class StepState(NamedTuple):
@@ -254,6 +255,7 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
                 mark("binding")
             out = rasterize(means3d, scales, quats, opac, shs, sh_degree,
                             camera, bg, tile_size=pipe_cfg.tile_size,
+                            binning=pipe_cfg.binning,
                             means2d_offset=offset, mark=mark,
                             **_precomputed(pipe_cfg, camera, means3d, scales,
                                            quats, shs, sh_degree))

@@ -160,8 +160,9 @@ FORBIDDEN = ("jax", "jaxlib", "gaussianavatars_tpu", "tests", "PIL", "tqdm",
 # without a display never run
 SHELLS_ONLY = {"dearpygui": ("local_viewer.py", "remote_viewer.py")}
 # the offline tools' modules, the COLMAP reader, the quality protocols, the
-# viewers and the parallel and multi-subject training, which the GPU host
-# must import as well
+# viewers, the parallel and multi-subject training, the sort binning, the
+# oracle rasterizer and the diagnostic tools, which the GPU host must
+# import as well
 NEW_MODULES = ("gaussianavatars_torch.metrics",
                "gaussianavatars_torch.metrics_lib.lpips",
                "gaussianavatars_torch.models.flame_mask_tables",
@@ -183,7 +184,11 @@ NEW_MODULES = ("gaussianavatars_torch.metrics",
                "gaussianavatars_torch.parallel.distributed",
                "gaussianavatars_torch.parallel.sharded",
                "gaussianavatars_torch.train.multisubject",
-               "gaussianavatars_torch.bench_multisubject")
+               "gaussianavatars_torch.bench_multisubject",
+               "gaussianavatars_torch.ops.binning",
+               "gaussianavatars_torch.ops.rasterize_reference",
+               "gaussianavatars_torch.tools.parity_vs_reference",
+               "gaussianavatars_torch.tools.diag_eval_views")
 
 
 def test_port_imports_no_jax():

@@ -74,9 +74,10 @@ def _camera(d, prefix=""):
         tan_fovy=float(d[prefix + "tan_fovy"]))
 
 
-def sharded_render(rank, world, root, width, height, sh_degree, tile_size):
+def sharded_render(rank, world, root, width, height, sh_degree, tile_size,
+                   binning="dense"):
     """make_sharded_render of the unbound scene in scene.npz over a
-    (1, world) mesh; writes image_<rank>.npy."""
+    (1, world) mesh with `binning`; writes image_<rank>.npy."""
     import torch
 
     from gaussianavatars_torch.models.gaussians import GaussianParams
@@ -91,7 +92,7 @@ def sharded_render(rank, world, root, width, height, sh_degree, tile_size):
     mesh = make_mesh(1, world)
     assert (mesh.data_index, mesh.prim_index) == (0, rank)
     render = make_sharded_render(mesh, width, height, sh_degree, tile_size,
-                                 bound=False)
+                                 bound=False, binning=binning)
     image = render(params, None, None, _camera(d), torch.ones(3))
     np.save(f"{root}/image_{rank}.npy", image.numpy())
 
@@ -121,7 +122,7 @@ def save_model(path, params, binding, flame_param, sh_degree, flame_paths,
 
 
 def train_step(rank, world, root, n_data, width, height, tile_size,
-               subjects):
+               subjects, binning="dense"):
     """One make_sharded_train_step (or, with `subjects`,
     make_multisubject_train_step: data group d trains model<d>.npz) over an
     (n_data, world // n_data) mesh from model0.npz and the views in
@@ -160,7 +161,8 @@ def train_step(rank, world, root, n_data, width, height, tile_size,
     opt = OptimizationConfig()
     make = make_multisubject_train_step if subjects \
         else make_sharded_train_step
-    step = make(mesh, model, opt, PipelineConfig(tile_size=tile_size),
+    step = make(mesh, model, opt, PipelineConfig(tile_size=tile_size,
+                                                 binning=binning),
                 width, height, model.max_sh_degree)
     v = np.load(f"{root}/views.npz")
     n = model.num_gaussians
