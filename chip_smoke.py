@@ -27,13 +27,17 @@ Phases (any failure exits non-zero before the result line):
   5. the serving path: the FLAME-bound bench avatar (101,440 Gaussians,
      SH 3) served at 802x550 through `make_render_fn` over all 4
      timesteps, with every kernel's launch count read around the run, then
-     ms per render, FPS and the per-stage breakdown (CUDA events);
+     ms per render, FPS and the per-stage breakdown (CUDA events), and one
+     render with its frame for the wire under
+     `torch.cuda.set_sync_debug_mode("warn")`: as many sync warnings as
+     the tracer's `host_syncs` (`sync_counts`);
   6. the training path: the same avatar trained through `make_train_step`
      (FLAME finetuning on, L1 + D-SSIM + xyz and scale regularizers, Adam,
      densification statistics) for 2 warm-up and 20 timed steps cycling
      the 4 timesteps, with both kernels' launch counts read around the
      timed steps, finiteness and a falling loss checked, then ms per step
-     and its per-phase breakdown (CUDA events);
+     and its per-phase breakdown (CUDA events), and one step's sync
+     warnings against its `host_syncs`;
   7. each kernel's time at the bench shapes beside its plain version's and
      its roofline bound, the bench stream's range lengths and the pixel
      evaluations the kernels make (a counting build), as JSON lines;
@@ -249,6 +253,34 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def sync_counts(fn) -> tuple:
+    """(sync warnings, host_syncs, warning texts) of one call of `fn`: the
+    warnings `torch.cuda.set_sync_debug_mode("warn")` raises for the host
+    syncs the call makes, and the host syncs the port's tracer counts."""
+    import warnings
+
+    from gaussianavatars_torch.utils import trace
+
+    torch.cuda.synchronize()
+    trace.stop()
+    tracer = trace.start()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        trace.stop()
+    texts = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    syncs = sum(r.counters.get(trace.HOST_SYNCS, 0)
+                for r in tracer.drain())
+    return len(texts), syncs, texts
 
 
 def nvidia_smi_line() -> str:
@@ -2885,6 +2917,7 @@ def main(argv=None) -> int:
         make_train_step,
     )
     from gaussianavatars_torch.train.optim import tree_leaves
+    from gaussianavatars_torch.viewer.network_gui import to_wire
 
     dev = resolve_device("cuda")
     phase_s, t_phase = {}, [time.perf_counter()]
@@ -3099,6 +3132,11 @@ def main(argv=None) -> int:
     stages = {k: v / (2 * model.num_timesteps) for k, v in stages.items()}
     print("[stages] ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                       stages.items()))
+    warned, syncs, texts = sync_counts(lambda: to_wire(serve(0).image))
+    print(f"[syncs] a render and its frame: {warned} sync warnings, "
+          f"host_syncs {syncs}")
+    check(warned == syncs, f"a render and to_wire: {warned} sync warnings "
+          f"against host_syncs {syncs}: {texts}")
 
     lap("serving")
     # ---- 6. the training path -----------------------------------------------
@@ -3189,6 +3227,16 @@ def main(argv=None) -> int:
     phases = {k: v / (2 * model.num_timesteps) for k, v in phases.items()}
     print("[train phases] ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                             phases.items()))
+
+    def one_step():
+        nonlocal state
+        state, _, _ = train(state, 0)
+
+    warned, syncs, texts = sync_counts(one_step)
+    print(f"[syncs] a train step: {warned} sync warnings, host_syncs "
+          f"{syncs}")
+    check(warned == syncs, f"a train step: {warned} sync warnings against "
+          f"host_syncs {syncs}: {texts}")
 
     lap("training")
     # ---- 7. the kernels at the bench shapes ---------------------------------

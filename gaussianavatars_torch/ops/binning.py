@@ -20,7 +20,9 @@ JAX `total` counts the rect slots before the cull, to size its static
 capacity bucket, and is not carried. The JAX `chunk_align` /
 `AlignedBinning` (a Pallas chunk relayout no caller uses) is not ported.
 `compute_tile_rects_ext` (the dense path's per-axis rect) lives here, as
-in the JAX package. All of this is bookkeeping without gradients.
+in the JAX package. All of this is bookkeeping without gradients. The
+host waits twice, for the slot count and the cull's compaction: the
+`utils/trace.py` syncs "sync.slots" and "sync.keep".
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from gaussianavatars_torch.utils.trace import sync
 
 
 class SortBinning(NamedTuple):
@@ -118,7 +122,8 @@ def bin_gaussians(means2d, depths, radii, valid, r2_max, width: int,
     counts = torch.where(valid[perm], rw * rh, torch.zeros_like(rw))
 
     # ---- expand every gaussian over its rect, depth order kept ------------
-    n_slots = int(counts.sum())
+    with sync("sync.slots"):
+        n_slots = int(counts.sum())
     owner = torch.repeat_interleave(
         torch.arange(n, device=dev), counts, output_size=n_slots)
     local = torch.arange(n_slots, device=dev) - (
@@ -135,8 +140,9 @@ def bin_gaussians(means2d, depths, radii, valid, r2_max, width: int,
     zero = torch.zeros((), device=dev)
     dx = torch.maximum(torch.maximum(bx_lo - mx, mx - (bx_lo + ts - 1)), zero)
     dy = torch.maximum(torch.maximum(by_lo - my, my - (by_lo + ts - 1)), zero)
-    # one host sync, as the dense path's mask: the kept slots' indices
-    kept = torch.nonzero(dx * dx + dy * dy <= r2_max[perm][owner]).squeeze(1)
+    hit = dx * dx + dy * dy <= r2_max[perm][owner]
+    with sync("sync.keep"):
+        kept = torch.nonzero(hit).squeeze(1)
 
     # ---- one stable sort by tile (depth order inherited) ------------------
     tile_id = (ty * ntx + tx)[kept].to(torch.int32)

@@ -17,7 +17,9 @@ The GPU form is the reference CUDA rasterizer's duplicated-key sort
 It produces the same stream as the JAX function (same `total`, ranges and
 gaussian-id order); the JAX level plan, buckets and RANK_BITS packing exist
 only for the TPU's static shapes and are not ported. All of this is
-bookkeeping without gradients.
+bookkeeping without gradients. The host waits twice, for the slot count
+(step 3) and the cull's compaction (step 4): the `utils/trace.py` syncs
+"sync.slots" and "sync.keep".
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from gaussianavatars_torch.ops.binning import (
     compute_tile_rects_ext,
     tile_grid,
 )
+from gaussianavatars_torch.utils.trace import sync
 
 
 class DenseBinning(NamedTuple):
@@ -92,7 +95,8 @@ def bin_gaussians_dense(means2d, depths, radii, valid, conics, tau, ext_x,
     counts = torch.where(valid, rw * rh, torch.zeros_like(rw))
 
     # ---- expand every gaussian over its rect ------------------------------
-    n_slots = int(counts.sum())
+    with sync("sync.slots"):
+        n_slots = int(counts.sum())
     gid = torch.repeat_interleave(
         torch.arange(n, device=dev), counts, output_size=n_slots)
     local = torch.arange(n_slots, device=dev) - (
@@ -115,7 +119,9 @@ def bin_gaussians_dense(means2d, depths, radii, valid, conics, tau, ext_x,
     keep = qmin <= tau[gid]
 
     # ---- one sort of unique keys tile << 32 | depth_rank ------------------
-    keys = ((ty * ntx + tx) << 32 | rank[gid])[keep]
+    keys = (ty * ntx + tx) << 32 | rank[gid]
+    with sync("sync.keep"):
+        keys = keys[keep]
     sorted_keys = torch.sort(keys).values
     gaussian_ids = perm[sorted_keys & 0xFFFFFFFF]
 

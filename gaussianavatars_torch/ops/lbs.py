@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from gaussianavatars_torch.utils.trace import sync
+
 
 def batch_rodrigues(rot_vecs: torch.Tensor) -> torch.Tensor:
     """Axis-angle [N, 3] -> rotation matrices [N, 3, 3].
@@ -59,8 +61,10 @@ def batch_rigid_transform(rot_mats, joints, parents):
     for i in range(1, j):
         rel_joints.append(joints[:, i] - joints[:, parents[i]])
 
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=joints.dtype,
-                          device=joints.device).expand(b, 1, 4)
+    # a copy from the host: on a GPU it waits for the device
+    with sync("sync.lbs_row"):
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=joints.dtype,
+                              device=joints.device).expand(b, 1, 4)
 
     def make_tf(R, t):
         return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom],

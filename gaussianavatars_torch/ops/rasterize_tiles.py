@@ -31,6 +31,7 @@ from gaussianavatars_torch.ops.projection import (
     project_gaussians,
 )
 from gaussianavatars_torch.ops.tile_blend import blend_image
+from gaussianavatars_torch.utils.trace import span
 
 
 def bin_projected(proj: ProjectedGaussians, width: int, height: int,
@@ -82,10 +83,11 @@ def rasterize(
     callers crop). `means2d_offset` ([N, 2] zeros) is added to the NDC
     centers; its gradient is the densification signal.
     `scaling_modifier`, `colors_precomp` ([N, 3]) and `cov3d_precomp`
-    ([N, 3, 3]) are those of `project_gaussians`. `mark`, if
-    given, is called with each stage's name as the stage is issued
-    ("projection", "binning", "pack_gather", "blend", "composite"); the
-    chip smoke test records CUDA events there.
+    ([N, 3, 3]) are those of `project_gaussians`. Each stage is a span of
+    `utils/trace.py` under "rasterize"; `mark`, if given, is called with
+    each stage's name as the stage is issued ("projection", "binning",
+    "pack_gather", "blend", "composite"); the chip smoke test records CUDA
+    events there.
 
     `projected` hands in Gaussians that are already projected (the
     render-parallel path of `parallel/sharded.py` projects each shard where
@@ -99,33 +101,34 @@ def rasterize(
     JAX signature defaults to "sort"; every caller of the port relies on
     the dense stream, so "dense" is the default here.
     """
-    proj = projected
-    if proj is None:
-        proj = project_gaussians(
-            means3d, scales, quats, opacities, shs, sh_degree, camera,
-            scaling_modifier=scaling_modifier, means2d_offset=means2d_offset,
-            colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp)
-    if mark:
-        mark("projection")
-    bins = bin_projected(proj, camera.width, camera.height, tile_size,
-                         tile_row_start, tile_rows, binning)
-    ranges = torch.stack([bins.tile_starts, bins.tile_ends], dim=-1)
-    if mark:
-        mark("binning")
-    inst = gather_instances(
-        pack_projected(proj.means2d, proj.conics, proj.colors,
-                       proj.opacities),
-        bins.gaussian_ids)
-    if mark:
-        mark("pack_gather")
-    slab_h = camera.height if tile_rows is None else tile_rows * tile_size
-    color, trans = blend_image(inst, ranges, tile_row_start * tile_size,
-                               camera.width, slab_h, tile_size)
-    if mark:
-        mark("blend")
-    image = color + trans[None, :, :] * bg[:, None, None]
-    if mark:
-        mark("composite")
+    with span("rasterize"):
+        with span("projection", mark):
+            proj = projected
+            if proj is None:
+                proj = project_gaussians(
+                    means3d, scales, quats, opacities, shs, sh_degree,
+                    camera, scaling_modifier=scaling_modifier,
+                    means2d_offset=means2d_offset,
+                    colors_precomp=colors_precomp,
+                    cov3d_precomp=cov3d_precomp)
+        with span("binning", mark):
+            bins = bin_projected(proj, camera.width, camera.height,
+                                 tile_size, tile_row_start, tile_rows,
+                                 binning)
+            ranges = torch.stack([bins.tile_starts, bins.tile_ends], dim=-1)
+        with span("pack_gather", mark):
+            inst = gather_instances(
+                pack_projected(proj.means2d, proj.conics, proj.colors,
+                               proj.opacities),
+                bins.gaussian_ids)
+        with span("blend", mark):
+            slab_h = (camera.height if tile_rows is None
+                      else tile_rows * tile_size)
+            color, trans = blend_image(inst, ranges,
+                                       tile_row_start * tile_size,
+                                       camera.width, slab_h, tile_size)
+        with span("composite", mark):
+            image = color + trans[None, :, :] * bg[:, None, None]
     return RenderOutput(image=image, transmittance=trans, radii=proj.radii,
                         visibility=proj.valid,
                         instance_total=bins.total)

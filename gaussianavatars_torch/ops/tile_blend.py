@@ -46,6 +46,7 @@ import torch
 from gaussianavatars_torch import kernels
 from gaussianavatars_torch.ops.binning_dense import _box_qmin, tile_grid
 from gaussianavatars_torch.ops.instance_pack import PACK_COLS
+from gaussianavatars_torch.utils.trace import span
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
@@ -88,7 +89,7 @@ def _route(inst, cuda_fn, plain_fn):
 
 class BlendImage(torch.autograd.Function):
     """K1 forward and K2 backward on CUDA tensors, the plain versions on
-    CPU tensors."""
+    CPU tensors; the backward is the span "blend_bwd" of `utils/trace.py`."""
 
     @staticmethod
     def forward(ctx, inst, ranges, py_offset, width, height, tile_size):
@@ -104,8 +105,9 @@ class BlendImage(torch.autograd.Function):
         bwd = _route(inst, blend_image_bwd_cuda, blend_image_bwd_plain)
         # autograd may hand over expanded cotangents (g_T of the
         # `trans * bg` composite)
-        g_inst = bwd(inst, ranges, *ctx.static, color, trans,
-                     g_color.contiguous(), g_trans.contiguous())
+        with span("blend_bwd"):
+            g_inst = bwd(inst, ranges, *ctx.static, color, trans,
+                         g_color.contiguous(), g_trans.contiguous())
         return g_inst, None, None, None, None, None
 
 

@@ -49,9 +49,11 @@ from gaussianavatars_torch.ops.sh import eval_sh
 from gaussianavatars_torch.ops.ssim import ssim
 from gaussianavatars_torch.train import optim
 from gaussianavatars_torch.train.losses import compute_losses
+from gaussianavatars_torch.utils import trace
 from gaussianavatars_torch.utils.image import l1_loss, psnr
 from gaussianavatars_torch.utils.schedules import expon_lr
 from gaussianavatars_torch.utils.system import safe_state
+from gaussianavatars_torch.utils.trace import span
 
 PRINT_EVERY = 100          # iterations between progress lines
 # device-resident ground-truth images (bytes)
@@ -120,8 +122,9 @@ def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
     faces, and rasterizes; an unbound model (binding None) renders its
     parameters as they are. `pipe_cfg.convert_SHs_python` and
     `compute_cov3D_python` precompute the colours and covariances outside
-    the rasterizer. `mark` is the per-stage hook of `rasterize`, also
-    called after "flame_frames" and "binding". The render runs without
+    the rasterizer. The call is the span "render" of `utils/trace.py`;
+    `mark` is the per-stage hook of `rasterize`, also called after
+    "flame_frames" and "binding". The render runs without
     autograd unless `differentiable` (the parity tool's probe gradients).
     """
     _check_pipeline(pipe_cfg)
@@ -130,22 +133,21 @@ def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
     def render(params, flame_param, binding, cam: CameraArrays,
                bg: torch.Tensor, timestep: int = 0, mark=None,
                scaling_modifier: float = 1.0) -> RenderOutput:
-        camera = _camera(cam, width, height)
-        frames = None
-        if bound:
-            frames = model.face_frames_at(flame_param, timestep)
-            if mark:
-                mark("flame_frames")
-        means3d, scales, quats, opac, shs = world_space_gaussians(
-            params, binding if bound else None, frames)
-        if mark:
-            mark("binding")
-        return rasterize(means3d, scales, quats, opac, shs, sh_degree,
-                         camera, bg, tile_size=pipe_cfg.tile_size,
-                         binning=pipe_cfg.binning,
-                         scaling_modifier=scaling_modifier, mark=mark,
-                         **_precomputed(pipe_cfg, camera, means3d, scales,
-                                        quats, shs, sh_degree))
+        with span("render"):
+            camera = _camera(cam, width, height)
+            frames = None
+            if bound:
+                with span("flame_frames", mark):
+                    frames = model.face_frames_at(flame_param, timestep)
+            with span("binding", mark):
+                means3d, scales, quats, opac, shs = world_space_gaussians(
+                    params, binding if bound else None, frames)
+            return rasterize(means3d, scales, quats, opac, shs, sh_degree,
+                             camera, bg, tile_size=pipe_cfg.tile_size,
+                             binning=pipe_cfg.binning,
+                             scaling_modifier=scaling_modifier, mark=mark,
+                             **_precomputed(pipe_cfg, camera, means3d,
+                                            scales, quats, shs, sh_degree))
 
     return render if differentiable else torch.no_grad()(render)
 
@@ -219,9 +221,11 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
 
     The state's tensors are updated IN PLACE (parameters, moments and
     statistics) and returned in the new state; the state passed in must
-    not be reused. `mark`, if given, is called with "flame_frames" (bound
-    only), "binding", the rasterizer's stages, "forward" (the loss),
-    "backward", "adam" and "stats" as each phase is issued.
+    not be reused. The call is the span "train_step" of `utils/trace.py`
+    and each phase a span under it; `mark`, if given, is called with
+    "flame_frames" (bound only), "binding", the rasterizer's stages,
+    "forward" (the loss), "backward", "adam" and "stats" as each phase is
+    issued.
     """
     _check_pipeline(pipe_cfg)
     bound = model.binding is not None
@@ -231,79 +235,78 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
              cam: CameraArrays, gt_image: torch.Tensor, bg: torch.Tensor,
              timestep: int, lrs: dict,
              mark: Optional[Callable[[str], None]] = None):
-        camera = _camera(cam, width, height)
-        params = GaussianParams(*[p.detach().requires_grad_()
-                                  for p in state.params])
-        flame_tr = {k: v.detach().requires_grad_()
-                    for k, v in state.flame_tr.items()}
-        offset = torch.zeros((params.xyz.shape[0], 2), dtype=torch.float32,
-                             device=params.xyz.device, requires_grad=True)
-        with torch.enable_grad():
-            frames = None
-            if bound:
-                flame_full = {**flame_fixed, **flame_tr}
-                verts, verts_cano = model.verts_at(flame_full, timestep,
-                                                   return_verts_cano=True)
-                frames = face_frames_from_verts(verts[0],
-                                                model.flame_model.faces)
-                if mark:
-                    mark("flame_frames")
-            means3d, scales, quats, opac, shs, face_scale = \
-                world_space_gaussians(params, binding if bound else None,
-                                      frames, return_face_scale=True)
-            if mark:
-                mark("binding")
-            out = rasterize(means3d, scales, quats, opac, shs, sh_degree,
-                            camera, bg, tile_size=pipe_cfg.tile_size,
-                            binning=pipe_cfg.binning,
-                            means2d_offset=offset, mark=mark,
-                            **_precomputed(pipe_cfg, camera, means3d, scales,
-                                           quats, shs, sh_degree))
-            total, losses = compute_losses(
-                out.image, gt_image, out.visibility, params.xyz,
-                params.scaling, face_scale, opt_cfg, bound)
-            if bound:
-                total = _flame_regularizers(model, opt_cfg, flame_full,
-                                            timestep, verts_cano, total,
-                                            losses)
-            losses["total"] = total
-            if mark:
-                mark("forward")
-            leaves = [*params, *flame_tr.values(), offset]
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves, grads)]
-        n_p = len(params)
-        g_params = GaussianParams(*grads[:n_p])
-        g_flame = dict(zip(flame_tr, grads[n_p:-1]))
-        g_offset = grads[-1]
-        if mark:
-            mark("backward")
+        with span("train_step"):
+            camera = _camera(cam, width, height)
+            params = GaussianParams(*[p.detach().requires_grad_()
+                                      for p in state.params])
+            flame_tr = {k: v.detach().requires_grad_()
+                        for k, v in state.flame_tr.items()}
+            offset = torch.zeros((params.xyz.shape[0], 2),
+                                 dtype=torch.float32,
+                                 device=params.xyz.device, requires_grad=True)
+            with torch.enable_grad():
+                frames = None
+                if bound:
+                    with span("flame_frames", mark):
+                        flame_full = {**flame_fixed, **flame_tr}
+                        verts, verts_cano = model.verts_at(
+                            flame_full, timestep, return_verts_cano=True)
+                        frames = face_frames_from_verts(
+                            verts[0], model.flame_model.faces)
+                with span("binding", mark):
+                    means3d, scales, quats, opac, shs, face_scale = \
+                        world_space_gaussians(
+                            params, binding if bound else None, frames,
+                            return_face_scale=True)
+                out = rasterize(means3d, scales, quats, opac, shs, sh_degree,
+                                camera, bg, tile_size=pipe_cfg.tile_size,
+                                binning=pipe_cfg.binning,
+                                means2d_offset=offset, mark=mark,
+                                **_precomputed(pipe_cfg, camera, means3d,
+                                               scales, quats, shs, sh_degree))
+                with span("forward", mark):
+                    total, losses = compute_losses(
+                        out.image, gt_image, out.visibility, params.xyz,
+                        params.scaling, face_scale, opt_cfg, bound)
+                    if bound:
+                        total = _flame_regularizers(
+                            model, opt_cfg, flame_full, timestep, verts_cano,
+                            total, losses)
+                    losses["total"] = total
+                with span("backward", mark):
+                    leaves = [*params, *flame_tr.values(), offset]
+                    grads = torch.autograd.grad(total, leaves,
+                                                allow_unused=True)
+                    grads = [torch.zeros_like(x) if g is None else g
+                             for x, g in zip(leaves, grads)]
+                    n_p = len(params)
+                    g_params = GaussianParams(*grads[:n_p])
+                    g_flame = dict(zip(flame_tr, grads[n_p:-1]))
+                    g_offset = grads[-1]
 
-        combined = {"gauss": state.params, "flame": state.flame_tr}
-        combined_g = {"gauss": g_params, "flame": g_flame}
-        new_p, mu, nu, count = optim.apply(combined, combined_g, state.mu,
-                                           state.nu, state.count, lrs)
-        if mark:
-            mark("adam")
+            with span("adam", mark):
+                combined = {"gauss": state.params, "flame": state.flame_tr}
+                combined_g = {"gauss": g_params, "flame": g_flame}
+                new_p, mu, nu, count = optim.apply(combined, combined_g,
+                                                   state.mu, state.nu,
+                                                   state.count, lrs)
 
-        # densification statistics (reference train.py:196-198), in place
-        with torch.no_grad():
-            vis = out.visibility
-            grad_norm = torch.linalg.norm(g_offset, dim=-1)
-            state.grad_accum.add_(torch.where(vis, grad_norm, 0.0))
-            state.denom.add_(vis.to(torch.float32))
-            torch.maximum(state.max_radii2d,
-                          torch.where(vis, out.radii.to(torch.float32), 0.0),
-                          out=state.max_radii2d)
-        if mark:
-            mark("stats")
-        new_state = StepState(
-            params=new_p["gauss"], flame_tr=new_p["flame"], mu=mu, nu=nu,
-            count=count, max_radii2d=state.max_radii2d,
-            grad_accum=state.grad_accum, denom=state.denom)
-        losses = {k: v.detach() for k, v in losses.items()}
-        return new_state, losses, out.instance_total
+            # densification statistics (reference train.py:196-198), in place
+            with span("stats", mark), torch.no_grad():
+                vis = out.visibility
+                grad_norm = torch.linalg.norm(g_offset, dim=-1)
+                state.grad_accum.add_(torch.where(vis, grad_norm, 0.0))
+                state.denom.add_(vis.to(torch.float32))
+                torch.maximum(
+                    state.max_radii2d,
+                    torch.where(vis, out.radii.to(torch.float32), 0.0),
+                    out=state.max_radii2d)
+            new_state = StepState(
+                params=new_p["gauss"], flame_tr=new_p["flame"], mu=mu, nu=nu,
+                count=count, max_radii2d=state.max_radii2d,
+                grad_accum=state.grad_accum, denom=state.denom)
+            losses = {k: v.detach() for k, v in losses.items()}
+            return new_state, losses, out.instance_total
 
     return step
 
@@ -342,20 +345,21 @@ def _flame_regularizers(model, opt_cfg: OptimizationConfig,
     """Add the weighted FLAME regularizers whose weights are non-zero to
     `losses` (`dy_off`, `dynamic_offset_std`, `lap`, in that order) and
     return `total` with them."""
-    if opt_cfg.lambda_dynamic_offset != 0.0:
-        losses["dy_off"] = model.compute_dynamic_offset_loss(
-            flame_full, timestep) * opt_cfg.lambda_dynamic_offset
-        total = total + losses["dy_off"]
-    if opt_cfg.lambda_dynamic_offset_std != 0.0:
-        # the population standard deviation over timesteps (jnp.std)
-        std = flame_full["dynamic_offset"].std(dim=0, correction=0).mean()
-        losses["dynamic_offset_std"] = \
-            std * opt_cfg.lambda_dynamic_offset_std
-        total = total + losses["dynamic_offset_std"]
-    if opt_cfg.lambda_laplacian != 0.0:
-        losses["lap"] = model.compute_laplacian_loss(
-            flame_full, timestep, verts_cano) * opt_cfg.lambda_laplacian
-        total = total + losses["lap"]
+    with span("flame_reg"):
+        if opt_cfg.lambda_dynamic_offset != 0.0:
+            losses["dy_off"] = model.compute_dynamic_offset_loss(
+                flame_full, timestep) * opt_cfg.lambda_dynamic_offset
+            total = total + losses["dy_off"]
+        if opt_cfg.lambda_dynamic_offset_std != 0.0:
+            # the population standard deviation over timesteps (jnp.std)
+            std = flame_full["dynamic_offset"].std(dim=0, correction=0).mean()
+            losses["dynamic_offset_std"] = \
+                std * opt_cfg.lambda_dynamic_offset_std
+            total = total + losses["dynamic_offset_std"]
+        if opt_cfg.lambda_laplacian != 0.0:
+            losses["lap"] = model.compute_laplacian_loss(
+                flame_full, timestep, verts_cano) * opt_cfg.lambda_laplacian
+            total = total + losses["lap"]
     return total
 
 
@@ -473,7 +477,11 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     `tb_writer` (`utils/tensorboard.py::SummaryWriter` or tensorboardX's)
     receives the losses and the number of Gaussians at every log point,
     and at each evaluation its metrics, render and error images and the
-    opacity histogram, under the JAX loop's tags. From iteration `debug_from` on (reference
+    opacity histogram, under the JAX loop's tags; at every log point also
+    the reference's `iter_time`, the mean host ms an iteration since the
+    last log point, and, while the tracer of `utils/trace.py` runs (train
+    --profile_dir), `timing/<span>_ms` and `timing/host_syncs` an
+    iteration. From iteration `debug_from` on (reference
     train.py --debug_from) `pipe_cfg.debug` is set; with it set, a
     non-finite loss read at a log point writes the state to
     `snapshot_fw_<iteration>.npz` in the model directory and raises
@@ -593,6 +601,7 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     history, timeline, metrics, densify_s = [], [], {}, []
     events = {"densify": 0, "opacity_reset": 0}
     t_start = time.time()
+    last_log = (first_iter, time.perf_counter())
 
     try:
         for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
@@ -666,6 +675,10 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                 src = (losses if iteration == opt_cfg.iterations
                        or prev_losses is None else prev_losses)
                 total = src["total"].item()
+                n_iter = iteration - last_log[0]
+                iter_ms = 1e3 * (time.perf_counter() - last_log[1]) / n_iter
+                last_log = (iteration, time.perf_counter())
+                spans = trace.totals(trace.drain())
                 if pipe_cfg.debug and not np.isfinite(total):
                     snap = os.path.join(model_cfg.model_path,
                                         f"snapshot_fw_{iteration}.npz")
@@ -687,6 +700,14 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                                              v, iteration)
                     tb_writer.add_scalar("total_points",
                                          model.num_gaussians, iteration)
+                    tb_writer.add_scalar("iter_time", iter_ms, iteration)
+                    for name, t in spans.items():
+                        tb_writer.add_scalar(f"timing/{name}_ms",
+                                             t["ms"] / n_iter, iteration)
+                    if spans:
+                        tb_writer.add_scalar("timing/host_syncs", sum(
+                            t.get(trace.HOST_SYNCS, 0)
+                            for t in spans.values()) / n_iter, iteration)
             if iteration % PRINT_EVERY == 0 or iteration == opt_cfg.iterations:
                 log(f"[ITER {iteration}] loss {ema_loss:.7f}, "
                     f"{model.num_gaussians} Gaussians")

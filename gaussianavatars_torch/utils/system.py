@@ -42,17 +42,27 @@ def profile_trace(log_dir: str | None):
     `<log_dir>/trace_<time>.json` (chrome://tracing or Perfetto read it).
     Does nothing when `log_dir` is None or empty, so a CLI flag passes
     straight through. Every operation of the block is recorded: meant for
-    short runs."""
+    short runs. The tracer of `utils/trace.py` runs over the block too, so
+    the trace names the program's spans (`ga:<span>`) and `training` logs
+    their times."""
     if not log_dir:
         yield None
         return
     from torch.profiler import ProfilerActivity, profile
 
+    from gaussianavatars_torch.utils import trace
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
+    started = trace.active() is None
+    trace.start()
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        if started:
+            trace.stop()
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{int(time.time())}.json"))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from gaussianavatars_torch.data.cameras import MiniCam
+from gaussianavatars_torch.utils.trace import span, sync
 
 
 class NetworkGUI:
@@ -126,9 +127,14 @@ class NetworkGUI:
 def to_wire(image) -> np.ndarray:
     """A [3, H, W] image in [0, 1] (tensor or array) as the wire's uint8
     [H, W, 3]: clip(x * 255, 0, 255) truncated, as the JAX server sends
-    it. A tensor is converted on its device and copied to the host once."""
+    it. A tensor is converted on its device and copied to the host once,
+    the span "to_wire" of `utils/trace.py` with the host sync
+    "sync.to_host"."""
     if isinstance(image, torch.Tensor):
-        return (image * 255.0).clamp(0.0, 255.0).to(torch.uint8).permute(
-            1, 2, 0).cpu().numpy()
+        with span("to_wire"):
+            wire = (image * 255.0).clamp(0.0, 255.0).to(torch.uint8).permute(
+                1, 2, 0)
+            with sync("sync.to_host"):
+                return wire.cpu().numpy()
     return np.clip(np.asarray(image) * 255.0, 0, 255).astype(
         np.uint8).transpose(1, 2, 0)

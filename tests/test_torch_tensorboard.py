@@ -5,7 +5,8 @@ JAX loop with tensorboardX's `SummaryWriter` run the same 3 iterations
 (losses read every iteration) with one evaluation at the end. Both event
 files are read back with tensorboard's `EventAccumulator`:
 
-  * the tag sets and the steps of every tag are equal;
+  * the tag sets and the steps of every tag are equal, but for the port's
+    `iter_time` (the reference's tag), logged at every log point;
   * scalars agree within rtol 1e-3 (the three-step tolerance of
     `test_torch_train_step.py`);
   * images have the same size; the val and test renders decode to pixels
@@ -104,7 +105,10 @@ def logs(tmp_path_factory):
 
 def test_tags_and_steps_match_jax(logs):
     t, j = logs["port"].Tags(), logs["jax"].Tags()
-    for kind in ("scalars", "images", "histograms"):
+    # the port also logs the reference's `iter_time`, which the JAX loop
+    # does not
+    assert sorted(t["scalars"]) == sorted(j["scalars"] + ["iter_time"])
+    for kind in ("images", "histograms"):
         assert sorted(t[kind]) == sorted(j[kind]), kind
     assert "total_points" in t["scalars"]
     assert "train_loss_patches/total_loss" in t["scalars"]
@@ -113,11 +117,12 @@ def test_tags_and_steps_match_jax(logs):
     assert sorted(t["images"]) == [f"{s}_{k}/{n}" for s in ("test", "val")
                                    for k in (0, 1)
                                    for n in ("error", "render")]
-    for tag in t["scalars"]:
+    for tag in j["scalars"]:
         steps = [e.step for e in logs["port"].Scalars(tag)]
         assert steps == [e.step for e in logs["jax"].Scalars(tag)], tag
-    assert [e.step for e in logs["port"].Scalars("total_points")] == \
-        list(range(1, ITERATIONS + 1))
+    for tag in ("total_points", "iter_time"):
+        assert [e.step for e in logs["port"].Scalars(tag)] == \
+            list(range(1, ITERATIONS + 1)), tag
 
 
 def test_scalars_match_jax(logs):
