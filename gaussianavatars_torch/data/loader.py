@@ -11,7 +11,9 @@ stream per thread, the pixels copied back to the host once) and with the
 plain decoder (`utils/jpeg.py`) when it is the CPU. A CUDA loader never
 decodes a JPEG on the CPU. Resizing and compositing are the same for both
 formats. Delivery follows the shuffled epoch order exactly, whatever order
-the threads finish in.
+the threads finish in. The consumer waits inside the `utils/trace.py`
+span "load_wait", which counts each delivered view that was decoded rather
+than taken from the cache in "loader_decodes".
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from gaussianavatars_torch.data.cameras import Camera
 from gaussianavatars_torch.utils.jpeg import decode_jpeg, is_jpeg
 from gaussianavatars_torch.utils.nvjpeg import NvJpegDecoder
 from gaussianavatars_torch.utils.png import decode_png
+from gaussianavatars_torch.utils.trace import LOADER_DECODES, count, span
 
 _CACHE_LOCK = threading.Lock()
 _IMAGE_CACHE: dict = {}     # (path, w, h, bg bytes, plain?) -> [3, H, W]
@@ -140,16 +143,28 @@ def load_camera_image(cam: Camera, resolution_arg: int = -1,
     onto the camera background, gray ones repeated to three channels, and
     the size follows the 1600 px auto-cap (`Camera.resolution`). Decoded
     views stay in host memory (the reference keeps every image resident)
-    under a byte budget, GA_IMAGE_CACHE_GB (default 4), and the whole cache
-    is dropped when it would overflow. `jpeg` decodes JPEG views (see
-    `read_image`); a gray JPEG becomes RGB as a gray PNG does.
+    under a byte budget, GA_IMAGE_CACHE_GB (default 4; a `CameraLoader`
+    may set its own), and the whole cache is dropped when it would
+    overflow. `jpeg` decodes JPEG views (see `read_image`); a gray JPEG
+    becomes RGB as a gray PNG does.
     """
+    return _load_camera_image(cam, resolution_arg, resolution_scale, jpeg,
+                              None)[0]
+
+
+def _load_camera_image(cam: Camera, resolution_arg: int,
+                       resolution_scale: float, jpeg,
+                       cache_bytes: int | None) -> tuple[np.ndarray, bool]:
+    """`load_camera_image` under the cache budget `cache_bytes` (None:
+    GA_IMAGE_CACHE_GB), and whether the view was decoded (False when it
+    came from the cache)."""
+    budget = _CACHE_BUDGET if cache_bytes is None else cache_bytes
     w, h = cam.resolution(resolution_arg, resolution_scale)
     key = (cam.image_path, w, h, cam.bg.tobytes(), jpeg is None)
     with _CACHE_LOCK:
         hit = _IMAGE_CACHE.get(key)
     if hit is not None:
-        return hit
+        return hit, False
 
     raw = read_image(cam.image_path, jpeg)
     if raw.shape[:2] != (h, w):
@@ -164,13 +179,13 @@ def load_camera_image(cam: Camera, resolution_arg: int = -1,
                                np.float32)
     out.setflags(write=False)
     with _CACHE_LOCK:
-        if _CACHE_BYTES[0] + out.nbytes > _CACHE_BUDGET:
+        if _CACHE_BYTES[0] + out.nbytes > budget:
             _IMAGE_CACHE.clear()
             _CACHE_BYTES[0] = 0
-        if out.nbytes <= _CACHE_BUDGET:
+        if out.nbytes <= budget:
             _IMAGE_CACHE[key] = out
             _CACHE_BYTES[0] += out.nbytes
-    return out
+    return out, True
 
 
 class CameraLoader:
@@ -179,17 +194,22 @@ class CameraLoader:
     Decoding is parallel, but delivery is strictly the shuffled epoch order
     (`random.Random(seed)`, one shuffle per epoch): each draw carries a
     sequence number and the consumer reorders, so every camera comes once
-    per epoch in an order that repeats from run to run.
+    per epoch in an order that repeats from run to run. `cache_bytes` is
+    the host cache's budget (None: GA_IMAGE_CACHE_GB).
+    `decodes` counts the delivered views that were decoded rather than
+    taken from the cache.
     """
 
     def __init__(self, cameras: list[Camera], resolution_arg: int = -1,
                  shuffle: bool = True, prefetch: int = 4,
                  num_threads: int = 4, seed: int = 0,
-                 loop: bool = True, device: str | torch.device = "cpu"):
+                 loop: bool = True, device: str | torch.device = "cpu",
+                 cache_bytes: int | None = None):
         if not cameras:
             raise ValueError("CameraLoader needs at least one camera")
         self.cameras = cameras
         self.resolution_arg = resolution_arg
+        self.cache_bytes = cache_bytes
         self.shuffle = shuffle
         self.loop = loop
         self.device = torch.device(device)
@@ -203,6 +223,7 @@ class CameraLoader:
         self._served = 0
         self._next_seq = 0
         self._reorder: dict = {}
+        self.decodes = 0
         self._threads = [threading.Thread(target=self._worker, daemon=True)
                          for _ in range(num_threads)]
         for t in self._threads:
@@ -239,10 +260,10 @@ class CameraLoader:
             seq, idx = drawn
             cam = self.cameras[idx]
             try:
-                item = (seq, cam, load_camera_image(
-                    cam, self.resolution_arg, jpeg=jpeg))
+                item = (seq, cam, *_load_camera_image(
+                    cam, self.resolution_arg, 1.0, jpeg, self.cache_bytes))
             except Exception as exc:   # handed to the consumer, raised there
-                item = (seq, cam, exc)
+                item = (seq, cam, exc, False)
             while not self._stop.is_set():
                 try:
                     self._queue.put(item, timeout=0.5)
@@ -254,10 +275,14 @@ class CameraLoader:
         return self
 
     def __next__(self):
-        while self._next_seq not in self._reorder:
-            seq, cam, img = self._queue.get()
-            self._reorder[seq] = (cam, img)
-        cam, img = self._reorder.pop(self._next_seq)
+        with span("load_wait"):
+            while self._next_seq not in self._reorder:
+                seq, *item = self._queue.get()
+                self._reorder[seq] = item
+            cam, img, decoded = self._reorder.pop(self._next_seq)
+            if decoded:
+                self.decodes += 1
+                count(LOADER_DECODES)
         self._next_seq += 1
         if isinstance(img, Exception):
             raise img

@@ -22,7 +22,8 @@ capacity bucket, and is not carried. The JAX `chunk_align` /
 `compute_tile_rects_ext` (the dense path's per-axis rect) lives here, as
 in the JAX package. All of this is bookkeeping without gradients. The
 host waits twice, for the slot count and the cull's compaction: the
-`utils/trace.py` syncs "sync.slots" and "sync.keep".
+`utils/trace.py` syncs "sync.slots" and "sync.keep", after which the two
+lengths are added to the counters "slots_expanded" and "slots_kept".
 """
 
 from __future__ import annotations
@@ -31,7 +32,12 @@ from typing import NamedTuple
 
 import torch
 
-from gaussianavatars_torch.utils.trace import sync
+from gaussianavatars_torch.utils.trace import (
+    SLOTS_EXPANDED,
+    SLOTS_KEPT,
+    count,
+    sync,
+)
 
 
 class SortBinning(NamedTuple):
@@ -124,6 +130,7 @@ def bin_gaussians(means2d, depths, radii, valid, r2_max, width: int,
     # ---- expand every gaussian over its rect, depth order kept ------------
     with sync("sync.slots"):
         n_slots = int(counts.sum())
+    count(SLOTS_EXPANDED, n_slots)
     owner = torch.repeat_interleave(
         torch.arange(n, device=dev), counts, output_size=n_slots)
     local = torch.arange(n_slots, device=dev) - (
@@ -143,6 +150,7 @@ def bin_gaussians(means2d, depths, radii, valid, r2_max, width: int,
     hit = dx * dx + dy * dy <= r2_max[perm][owner]
     with sync("sync.keep"):
         kept = torch.nonzero(hit).squeeze(1)
+    count(SLOTS_KEPT, kept.shape[0], ranged=True)
 
     # ---- one stable sort by tile (depth order inherited) ------------------
     tile_id = (ty * ntx + tx)[kept].to(torch.int32)

@@ -19,7 +19,8 @@ gaussian-id order); the JAX level plan, buckets and RANK_BITS packing exist
 only for the TPU's static shapes and are not ported. All of this is
 bookkeeping without gradients. The host waits twice, for the slot count
 (step 3) and the cull's compaction (step 4): the `utils/trace.py` syncs
-"sync.slots" and "sync.keep".
+"sync.slots" and "sync.keep", after which the two lengths are added to the
+counters "slots_expanded" and "slots_kept".
 """
 
 from __future__ import annotations
@@ -32,7 +33,12 @@ from gaussianavatars_torch.ops.binning import (
     compute_tile_rects_ext,
     tile_grid,
 )
-from gaussianavatars_torch.utils.trace import sync
+from gaussianavatars_torch.utils.trace import (
+    SLOTS_EXPANDED,
+    SLOTS_KEPT,
+    count,
+    sync,
+)
 
 
 class DenseBinning(NamedTuple):
@@ -97,6 +103,7 @@ def bin_gaussians_dense(means2d, depths, radii, valid, conics, tau, ext_x,
     # ---- expand every gaussian over its rect ------------------------------
     with sync("sync.slots"):
         n_slots = int(counts.sum())
+    count(SLOTS_EXPANDED, n_slots)
     gid = torch.repeat_interleave(
         torch.arange(n, device=dev), counts, output_size=n_slots)
     local = torch.arange(n_slots, device=dev) - (
@@ -122,6 +129,7 @@ def bin_gaussians_dense(means2d, depths, radii, valid, conics, tau, ext_x,
     keys = (ty * ntx + tx) << 32 | rank[gid]
     with sync("sync.keep"):
         keys = keys[keep]
+    count(SLOTS_KEPT, keys.shape[0], ranged=True)
     sorted_keys = torch.sort(keys).values
     gaussian_ids = perm[sorted_keys & 0xFFFFFFFF]
 

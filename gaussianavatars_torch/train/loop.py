@@ -65,6 +65,28 @@ GT_DEV_CACHE_BUDGET = int(float(os.environ.get("GA_GT_DEVICE_CACHE_GB", "2"))
                           * (1 << 30))
 
 
+class GroundTruthCache:
+    """Ground-truth images on the device under a byte budget (`budget`;
+    None: GA_GT_DEVICE_CACHE_GB, 2 GB): a view is copied to the device on
+    first use and kept while the budget lasts; once it is spent, every
+    view that did not fit is copied again on each use."""
+
+    def __init__(self, device, budget: int | None = None):
+        self.device = device
+        self.budget = GT_DEV_CACHE_BUDGET if budget is None else budget
+        self.images, self.nbytes = {}, 0
+
+    def get(self, key, image: np.ndarray) -> torch.Tensor:
+        out = self.images.get(key)
+        if out is None:
+            out = torch.tensor(image, device=self.device)
+            nbytes = out.element_size() * out.nelement()
+            if self.nbytes + nbytes <= self.budget:
+                self.images[key] = out
+                self.nbytes += nbytes
+        return out
+
+
 class CameraArrays(NamedTuple):
     """Per-view camera inputs (width/height are fixed per render fn)."""
 
@@ -639,7 +661,7 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
         return full
 
     step_fns, gui_fns = {}, {}
-    gt_cache, gt_bytes = {}, 0     # device-resident ground truth
+    gt_cache = GroundTruthCache(dev)
     bg_cache = {}
     ema_loss, prev_losses = None, None
     history, timeline, metrics, densify_s = [], [], {}, []
@@ -697,13 +719,7 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                         mesh, model, opt_cfg, pipe_cfg, w, h,
                         model.active_sh_degree)
             gt_key = (cam.image_path or (cam.camera_id, cam.timestep), w, h)
-            gt_dev = gt_cache.get(gt_key)
-            if gt_dev is None:
-                gt_dev = torch.tensor(gt, device=dev)
-                nbytes = gt_dev.element_size() * gt_dev.nelement()
-                if gt_bytes + nbytes <= GT_DEV_CACHE_BUDGET:
-                    gt_cache[gt_key] = gt_dev
-                    gt_bytes += nbytes
+            gt_dev = gt_cache.get(gt_key, gt)
             bg = bg_cache.get(cam.bg.tobytes())
             if bg is None:
                 bg = bg_cache[cam.bg.tobytes()] = torch.tensor(

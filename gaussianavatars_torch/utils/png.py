@@ -10,18 +10,29 @@ naming the file on any other format. JPEG views decode elsewhere
 size of a PNG or a JPEG from its header.
 
 Supported: non-interlaced PNGs of bit depth 8, gray (color type 0), RGB (2)
-and RGBA (6), with any of the five row filters. An image whose rows use
-only the none, sub and up filters is rebuilt row by row (a running sum
-for sub). With average or Paeth rows, decoding undoes the filters for the
-whole image in one pass over its anti-diagonals: a byte depends only on
+and RGBA (6), with any of the five row filters. An image with filtered
+rows is rebuilt by `csrc/png_unfilter.c`, built with the host's C
+compiler into `_build/` on first use and called through ctypes without
+the interpreter's lock, so that a loader's decoding threads leave the
+training loop's thread alone. Without a C compiler numpy rebuilds it (the
+pass the tests hold the C one against): an image whose rows use only the
+none, sub and up filters row by row (a running sum for sub); with average
+or Paeth rows in one pass over its anti-diagonals: a byte depends only on
 its left, upper and upper-left neighbours, so every pixel of one
 anti-diagonal can be rebuilt at once (H + W - 1 numpy steps).
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
+import shutil
 import struct
+import subprocess
+import threading
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -128,14 +139,57 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def _unfilter(rows: np.ndarray, h: int, w: int, ch: int,
-              path: str) -> np.ndarray:
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "png_unfilter.c"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+_NATIVE_LOCK = threading.Lock()
+_native: list = []          # [the C pass, or None without a C compiler]
+
+
+def _build_native():
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        return None
+    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
+    lib = _BUILD_DIR / f"libpng_unfilter-{digest}.so"
+    if not lib.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run([cc, "-std=c99", "-O3", "-shared", "-fPIC", "-o",
+                        str(tmp), str(_SOURCE)], check=True,
+                       capture_output=True)
+        os.replace(tmp, lib)
+    fn = ctypes.CDLL(str(lib)).png_unfilter
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int]
+    fn.restype = None
+    return fn
+
+
+def native_unfilter():
+    """The C pass (`csrc/png_unfilter.c`), built on first use; None where
+    the host has no C compiler. A compiler that fails raises."""
+    with _NATIVE_LOCK:
+        if not _native:
+            _native.append(_build_native())
+        return _native[0]
+
+
+def _unfilter(rows: np.ndarray, h: int, w: int, ch: int, path: str,
+              native=True) -> np.ndarray:
+    """The image [H, W, C] from its filtered rows, by the C pass where
+    `native` and the host has one, else by numpy."""
     ftype = rows[:, 0]
     data = rows[:, 1:].reshape(h, w, ch)
     if (ftype > 4).any():
         raise PNGError(f"{path}: unknown row filter {int(ftype.max())}")
     if not ftype.any():
         return data.copy()
+    fn = native_unfilter() if native else None
+    if fn is not None:
+        rows = np.ascontiguousarray(rows)
+        out = np.empty((h, w, ch), np.uint8)
+        fn(rows.ctypes.data, out.ctypes.data, h, w, ch)
+        return out
     if ftype.max() <= 2:
         # none, sub and up only: a row needs its left neighbours (a running
         # sum, modulo 256 in uint8) or the row above, row by row

@@ -11,11 +11,17 @@ with "flame_reg"), "backward" (with "blend_bwd", K2's launch), "adam" and
 of kind "sync" whose name starts with "sync." and that adds 1 to the
 counter "host_syncs": the binning's slot count and compaction
 ("sync.slots", "sync.keep") and `to_wire`'s copy to the host
-("sync.to_host"). A render on the card that replays its captured prefix
-(`train/render_graph.py`) opens "graph_replay" under "render", which
-counts 1 in "graph_replays" and, when it captured the graph first, 1 in
-"graph_captures"; "flame_frames", "binding" and "projection" then open
-and close with no work in them (`count` adds to the innermost span).
+("sync.to_host"). The binning adds its stream's length before and after
+its cull to the counters "slots_expanded" and "slots_kept" (host ints it
+already waited for; "slots_kept" also as a profiler range, below), and
+the camera loader's `__next__` waits inside
+"load_wait", counting 1 in "loader_decodes" for each view that was
+decoded rather than taken from the cache. A render on the card that
+replays its captured prefix (`train/render_graph.py`) opens
+"graph_replay" under "render", which counts 1 in "graph_replays" and,
+when it captured the graph first, 1 in "graph_captures"; "flame_frames",
+"binding" and "projection" then open and close with no work in them
+(`count` adds to the innermost span).
 
 Three things may watch a span, each without the others:
 
@@ -25,7 +31,9 @@ Three things may watch a span, each without the others:
   hands out the closed records. Self time is computed when read
   (`self_ns`, `totals`), not while the spans run.
 - an active `torch.profiler`: the span opens the range `ga:<name>`, so
-  the profiler's trace names the host work around every device gap.
+  the profiler's trace names the host work around every device gap, and
+  `count(..., ranged=True)` opens an empty range `ga.count:<name>=<n>`,
+  so the trace holds that counter's values too.
   `Tracer.wall_ns` puts a record on that trace's clock (`ts` microseconds
   after `baseTimeNanoseconds`, on the wall clock).
 - `mark`, the caller's per-stage hook (the benchmark's host clock, the
@@ -48,7 +56,10 @@ from torch.autograd.profiler import record_function
 STAGE, SYNC = "stage", "sync"
 HOST_SYNCS = "host_syncs"
 GRAPH_REPLAYS, GRAPH_CAPTURES = "graph_replays", "graph_captures"
+SLOTS_EXPANDED, SLOTS_KEPT = "slots_expanded", "slots_kept"
+LOADER_DECODES = "loader_decodes"
 RANGE_PREFIX = "ga:"
+COUNT_PREFIX = "ga.count:"
 
 
 class Record:
@@ -179,12 +190,16 @@ def span(name: str, mark=None):
     return _Span(_tracer, name, STAGE, mark)
 
 
-def count(name: str):
-    """Add 1 to the counter `name` of the innermost open span (nothing when
-    no tracer runs or no span is open)."""
+def count(name: str, n: int = 1, ranged: bool = False):
+    """Add `n` to the counter `name` of the innermost open span (nothing
+    when no tracer runs or no span is open). With `ranged`, while a
+    profiler runs, also open and close the range `ga.count:<name>=<n>`."""
     if _tracer is not None and _tracer.open:
         counters = _tracer.open[-1].counters
-        counters[name] = counters.get(name, 0) + 1
+        counters[name] = counters.get(name, 0) + n
+    if ranged and _profiler_enabled():
+        with record_function(f"{COUNT_PREFIX}{name}={n}"):
+            pass
 
 
 def sync(name: str):

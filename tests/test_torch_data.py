@@ -294,3 +294,21 @@ def test_system_utils(tmp_path):
     system.safe_state(3)
     assert (random.random(), np.random.random(), torch.rand(1).item()) \
         == first
+
+
+@pytest.mark.parametrize("fits", [0, 1, 3])
+def test_ground_truth_cache_budget(fits):
+    """The training loop's device cache keeps the views that fit its budget
+    in first-use order and hands those back without a copy; a view past
+    the budget is copied again on each use, with the same values."""
+    from gaussianavatars_torch.train.loop import GroundTruthCache
+
+    imgs = [np.full((3, 4, 5), v, np.float32) for v in range(3)]
+    cache = GroundTruthCache("cpu", fits * imgs[0].nbytes)
+    first = [cache.get(v, img) for v, img in enumerate(imgs)]
+    again = [cache.get(v, img) for v, img in enumerate(imgs)]
+    for v, (a, b) in enumerate(zip(first, again)):
+        assert (a is b) == (v < fits), v
+        assert torch.equal(a, b) and float(b[0, 0, 0]) == v
+    assert sorted(cache.images) == list(range(fits))
+    assert cache.nbytes == fits * imgs[0].nbytes

@@ -179,6 +179,25 @@ def test_png_encoder_read_by_pil(filter_type, channels, tmp_path):
             assert _filters(f.read(), img.shape[0]) == {filter_type}
 
 
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_png_c_pass_matches_numpy(channels):
+    """Rows of all five filters mixed in one image, as an adaptive writer
+    leaves them: the C pass (built with the host's compiler) and the numpy
+    pass both rebuild the image that was filtered."""
+    rng = np.random.default_rng(channels)
+    h, w = 41, 23
+    img = rng.integers(0, 256, (h, w, channels), np.uint8)
+    ftype = np.concatenate([np.arange(5), rng.integers(0, 5, h - 5)])
+    rows = np.empty((h, 1 + w * channels), np.uint8)
+    rows[:, 0] = ftype
+    for r in range(h):
+        rows[r, 1:] = png._filter(img, int(ftype[r]))[r].reshape(-1)
+    assert png.native_unfilter() is not None
+    for native in (True, False):
+        np.testing.assert_array_equal(
+            png._unfilter(rows, h, w, channels, "x", native=native), img)
+
+
 def test_png_rejects_other_files(tmp_path):
     jpg = str(tmp_path / "photo.png")
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(jpg, "JPEG")

@@ -27,6 +27,10 @@ from gaussianavatars_torch.config import (
     PipelineConfig,
 )
 from gaussianavatars_torch.ops import rasterize_tiles
+from gaussianavatars_torch.ops.binning import (
+    compute_tile_rects,
+    compute_tile_rects_ext,
+)
 from gaussianavatars_torch.ops.projection import project_gaussians
 from gaussianavatars_torch.train.loop import (
     camera_arrays,
@@ -187,9 +191,116 @@ def test_host_syncs_of_a_binning(binning):
     syncs = [r for r in records if r.kind == trace.SYNC]
     assert [r.name for r in syncs] == ["sync.slots", "sync.keep"]
     assert [r.counters for r in syncs] == [{trace.HOST_SYNCS: 1}] * 2
-    assert trace.totals(records)["root"] == pytest.approx(
+    root = trace.totals(records)["root"]
+    expanded = root.pop(trace.SLOTS_EXPANDED)
+    assert root == pytest.approx(
         {"n": 1, "ms": records[0].duration_ns * 1e-6,
-         "self_ms": trace.self_ns(records)[0] * 1e-6})
+         "self_ms": trace.self_ns(records)[0] * 1e-6,
+         trace.SLOTS_KEPT: bins.total})
+    assert expanded >= bins.total
+
+
+@pytest.mark.parametrize("binning", ["dense", "sort"])
+def test_slot_counters_of_a_binning(binning, tmp_path):
+    """The stream's length before the cull is the sum of the rects' tiles,
+    after it the stream's length; under a profiler the kept length is also
+    the range `ga.count:slots_kept=<value>`, and the expanded one is not a
+    range."""
+    scene = tbench.make_bench_scene(n=500, seed=2, device="cpu")
+    cam = tbench.make_camera(W, H, fovx=0.5, dist=1.0, device="cpu")
+    proj = project_gaussians(scene["means3d"], scene["scales"],
+                             scene["quats"], scene["opacities"],
+                             scene["shs"], 3, cam)
+    rects = (compute_tile_rects_ext(proj.means2d, proj.ext_x, proj.ext_y,
+                                    proj.radii, W, H, TILE)
+             if binning == "dense" else
+             compute_tile_rects(proj.means2d, proj.radii, W, H, TILE))
+    x0, y0, x1, y1 = rects
+    area = ((x1 - x0).clamp(min=0) * (y1 - y0).clamp(min=0))[proj.valid]
+    trace.start()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with trace.span("root"):
+            bins = rasterize_tiles.bin_projected(proj, W, H, TILE,
+                                                 binning=binning)
+    root = trace.totals(trace.drain())["root"]
+    assert root[trace.SLOTS_EXPANDED] == int(area.sum()) > bins.total > 0
+    assert root[trace.SLOTS_KEPT] == bins.total
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]
+    counted = sorted(n for n in names if n.startswith(trace.COUNT_PREFIX))
+    assert counted == [f"{trace.COUNT_PREFIX}{trace.SLOTS_KEPT}="
+                       f"{bins.total}"]
+
+
+def test_count_adds_to_the_innermost_span():
+    trace.count("x", 5)                 # no tracer: nothing kept
+    trace.start()
+    trace.count("x", 5)                 # no open span: nothing kept
+    with trace.span("a"):
+        trace.count("x", 2)
+        with trace.span("b"):
+            trace.count("x", 3)
+            trace.count("x")
+    assert [(r.name, r.counters) for r in trace.drain()] == [
+        ("a", {"x": 2}), ("b", {"x": 4})]
+
+
+def test_count_opens_a_range_only_when_ranged(tmp_path):
+    """Under a profiler, `count(..., ranged=True)` opens the empty range
+    `ga.count:<name>=<n>`; a plain `count` opens none."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        trace.count("plain", 3)
+        trace.count("ranged", 7, ranged=True)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]
+    assert [n for n in names if n.startswith(trace.COUNT_PREFIX)] == [
+        f"{trace.COUNT_PREFIX}ranged=7"]
+
+
+def test_loader_wait_span_and_decode_counter(tmp_path):
+    """`CameraLoader.__next__` waits inside "load_wait" (a root span of its
+    own) and counts a decoded view there and in `decodes`; with a cache
+    budget below one image every view is decoded again each epoch, and
+    with a budget that holds them all only the first epoch decodes."""
+    from gaussianavatars_torch.data.cameras import Camera
+    from gaussianavatars_torch.data.loader import CameraLoader
+    from gaussianavatars_torch.utils.png import write_png
+
+    rng = np.random.default_rng(4)
+    image_bytes = 3 * 6 * 8 * 4
+    for budget, per_epoch in ((image_bytes - 1, [3, 3]),
+                              (10 * image_bytes, [3, 0])):
+        cams = []
+        for v in range(3):
+            path = str(tmp_path / f"{budget}_{v}.png")
+            write_png(path, rng.integers(0, 256, (6, 8, 3), np.uint8), 4)
+            cams.append(Camera(uid=v, R=np.eye(3), T=np.zeros(3), fovx=0.5,
+                               fovy=0.4, width=8, height=6, image_path=path))
+        # one thread: each view is decoded (and cached) before the next
+        loader = CameraLoader(cams, shuffle=False, num_threads=1,
+                              cache_bytes=budget)
+        trace.start()
+        try:
+            decodes = []
+            for _ in range(2):
+                got = [next(loader)[0].uid for _ in range(3)]
+                assert got == [0, 1, 2]
+                records = trace.drain()
+                assert {r.name for r in records} == {"load_wait"}
+                assert all(r.parent is None for r in records)
+                decodes.append(trace.totals(records)["load_wait"].get(
+                    trace.LOADER_DECODES, 0))
+        finally:
+            loader.stop()
+            trace.stop()
+        assert decodes == per_epoch, (budget, decodes)
+        assert loader.decodes == sum(per_epoch)
 
 
 def test_host_sync_of_to_wire():
