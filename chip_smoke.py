@@ -3030,6 +3030,264 @@ def graph_phase(dev, frames=GRAPH_FRAMES, sizes=GRAPH_SIZES,
     return result
 
 
+PROJECTION_TIMED = 50         # phase 15: launches timed a kernel
+PROJECTION_RING = (0, 11, 22)  # phase 15: scene-train's ring cameras
+PROJECTION_NEAR = (-1.0, 0.1, 0.19, 0.199, 0.2, 0.201, 0.21, 0.3)
+TOL_PROJECTION = (1e-5, 1e-6)  # phase 15: the fields' rtol, atol
+# phase 15: the share of a field's values that may lie outside
+# TOL_PROJECTION, and how far any may lie, relative to the largest
+# magnitude of its row (pixel centres: plus the image's width). The kernel
+# rounds as the plain version does but for the matrix product's order, so
+# most values are its bits; what rounding is left grows where float32 is
+# ill-conditioned: conics of near-degenerate 2D covariances (up to the
+# condition number, lambda_max / 0.3 px^2) and pixel centres near the top
+# and left edges, where ndc + 1 cancels. A fault moves far more values, and
+# further.
+PROJECTION_SHARE = 1e-3
+TOL_PROJECTION_MAX = 1e-3
+TOL_PROJECTION_GRAD = 1e-5     # phase 15: per gradient max|d| / max|plain|
+CEIL_STEP = 1e-5              # phase 15: a value this near an integer may
+                              # round up on either side of it
+
+
+def _plain_steps(means3d, scales, quats, opacities, camera) -> dict:
+    """The plain projection's values before its ceil steps and r2_max's
+    float32 sensitivity, per Gaussian (phase 15): `radius` and `ext_x` /
+    `ext_y` before `ceil`; `r2_sens`, tau times the few ulps of mid^2 that
+    round in mid^2 - det, divided by 2 disc (lambda_max = mid + disc is
+    ill-conditioned where mid^2 and det nearly cancel)."""
+    from gaussianavatars_torch.ops import projection as proj
+
+    comps = proj._cov3d_components(scales, quats)
+    a, b, c = proj.compute_cov2d_components(
+        means3d, comps, camera.viewmatrix, *proj._focals(camera),
+        camera.tan_fovx, camera.tan_fovy)
+    det = a * c - b ** 2
+    mid = 0.5 * (a + c)
+    disc = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    lam = torch.clamp(mid + disc, min=0.0)
+    tau = torch.clamp(2.0 * torch.log(torch.clamp(255.0 * opacities,
+                                                  min=1e-12)), min=0.0)
+    return dict(radius=torch.minimum(3.0 * torch.sqrt(lam),
+                                     torch.sqrt(tau * lam)),
+                ext_x=torch.sqrt(tau * torch.clamp(a, min=0.0)),
+                ext_y=torch.sqrt(tau * torch.clamp(c, min=0.0)),
+                r2_sens=tau * 2.0 ** -21 * mid * mid / disc)
+
+
+def _near_step(x):
+    return (x - torch.round(x)).abs() <= CEIL_STEP * torch.clamp(x, min=1.0)
+
+
+def projection_phase(dev, scene_gaussians=3_000_000, n_per_face=10,
+                     timed=PROJECTION_TIMED, sizes=None) -> dict:
+    """Phase 15: kernels `project_fwd` and `project_bwd` (csrc/project.cu)
+    against their plain versions on the bench avatar at 802x550 and on
+    scene-train's 3.0M-Gaussian scene from three of its ring cameras at
+    1237x822, with Gaussians placed at and around the near plane of each.
+    Fields within TOL_PROJECTION (r2_max also within its float32
+    sensitivity, `_plain_steps`) on all but PROJECTION_SHARE of the
+    values, every value within TOL_PROJECTION_MAX of its row's magnitude,
+    pixel centres on the near plane aside; radii, valid and the extents
+    equal
+    except where the plain value lies within CEIL_STEP of a ceil step,
+    of an image edge or of the near plane, counted and reported; every
+    gradient within TOL_PROJECTION_GRAD of `project_bwd_plain`, the
+    cotangents read as the stride-9 slices the pack's gradient hands over.
+    Then both kernels' CUDA-event times beside their HBM bounds and the
+    plain versions' times, and the tracer's `projections_fused`: one a
+    render (graphed or eager) and one a train step."""
+    from avatarbench import scene as bscene
+    from avatarbench import scene3dgs
+    from gaussianavatars_torch.benchmark import (
+        HEIGHT, WIDTH, bench_camera, bound_bench_scene,
+        make_bound_bench_model,
+    )
+    from gaussianavatars_torch.config import OptimizationConfig, PipelineConfig
+    from gaussianavatars_torch.models.gaussians import (
+        GaussianParams, world_space_gaussians,
+    )
+    from gaussianavatars_torch.ops import projection as proj
+    from gaussianavatars_torch.ops.sh import num_sh_coeffs
+    from gaussianavatars_torch.train import loop
+    from gaussianavatars_torch.utils import trace
+
+    sizes = sizes or dict(bench=(WIDTH, HEIGHT), scene=(1237, 822))
+    model = make_bound_bench_model(n_per_face=n_per_face, device=dev)
+    avatar = bound_bench_scene(model, 0)
+    bench_cam = bench_camera(*sizes["bench"], device=dev)
+    with torch.no_grad():
+        raw = scene3dgs.scene_params(3000000711, scene_gaussians, dict(
+            object_share=0.6, object_radius=1.0,
+            background_radius=[1.5, 40.0], object_scale=0.008,
+            scale_sigma=0.4, flatten=0.1, scale_distance=4.0),
+            num_sh_coeffs(3), dev)
+        scene_args = world_space_gaussians(GaussianParams(**raw), None, None)
+    rig = bscene.rig(32, 174.375, 0.15, 4.0)
+
+    def near_plane(camera, n):
+        """n Gaussians at view depths PROJECTION_NEAR, off-centre."""
+        g = torch.Generator(device=dev).manual_seed(5)
+        z = torch.tensor(PROJECTION_NEAR, device=dev).repeat(
+            n // len(PROJECTION_NEAR))
+        xy = (torch.rand(z.shape[0], 2, generator=g, device=dev) - 0.5) * z[
+            :, None]
+        view = torch.cat([xy, z[:, None], torch.ones_like(z[:, None])], 1)
+        world = (view.double() @ torch.linalg.inv(
+            camera.viewmatrix.double()))[:, :3].float()
+        src = [t[:z.shape[0]] for t in scene_args[1:]]
+        return (world, *src)
+
+    cases = [("bench avatar", (avatar["means3d"], avatar["scales"],
+                               avatar["quats"], avatar["opacities"],
+                               avatar["shs"]), bench_cam)]
+    for c in PROJECTION_RING:
+        camera = proj.CameraParams(**bscene.camera(
+            rig[c], *sizes["scene"], 0.9, dev))
+        probes = near_plane(camera, 64 * len(PROJECTION_NEAR))
+        cases.append((f"scene camera {c}", tuple(
+            torch.cat([a, b]) for a, b in zip(scene_args, probes)), camera))
+
+    rtol, atol = TOL_PROJECTION
+    fields = [f for f in proj.ProjectedGaussians._fields if f != "opacities"]
+    result = {"cases": {}}
+    for name, args, camera in cases:
+        n = args[0].shape[0]
+        off = torch.zeros(n, 2, device=dev)
+        got = dict(zip(fields, proj.project_fwd_cuda(*args, 3, camera, 1.0,
+                                                     off)))
+        want = dict(zip(fields, proj.project_fwd_plain(*args, 3, camera, 1.0,
+                                                       off)))
+        torch.cuda.synchronize()
+        steps = _plain_steps(*args[:4], camera)
+        near = (want["depths"] - 0.2).abs() <= 1e-6
+        line = {"gaussians": n, "visible": int(want["valid"].sum())}
+        for f in ("means2d", "depths", "conics", "colors", "tau", "r2_max"):
+            ref = want[f].reshape(n, -1)
+            d = (got[f].reshape(n, -1) - ref).abs()
+            if f == "means2d":      # w = 1 where culled: either side of 0.2
+                d[near] = 0.0
+            bound = atol + rtol * ref.abs()
+            if f == "r2_max":
+                bound = bound + steps["r2_sens"][:, None]
+            scale = ref.abs().max(1, keepdim=True).values + (
+                camera.width if f == "means2d" else 1.0)
+            outside = float((d > bound).float().mean())
+            line[f] = dict(max_abs=float(d.max()), share_outside=outside)
+            check(outside <= PROJECTION_SHARE, f"projection {name}: "
+                  f"{outside} of {f} outside rtol {rtol} / atol {atol}")
+            check(bool((d <= TOL_PROJECTION_MAX * scale).all()),
+                  f"projection {name}: {f} off by {float(d.max())}")
+        m2d = want["means2d"]
+        r = steps["radius"]
+        edge = torch.stack([m2d[:, 0] + r, camera.width - (m2d[:, 0] - r),
+                            m2d[:, 1] + r, camera.height - (m2d[:, 1] - r)],
+                           1).abs().min(1).values <= CEIL_STEP * max(
+            camera.width, camera.height)
+        explained = _near_step(r) | edge | near
+        flips = (got["radii"] != want["radii"]) | (got["valid"]
+                                                   != want["valid"])
+        for f in ("ext_x", "ext_y"):
+            off_by = got[f] != want[f]
+            check(bool((explained | _near_step(steps[f]))[off_by].all()),
+                  f"projection {name}: {f} differs off a ceil step")
+            line[f + "_steps"] = int(off_by.sum())
+        check(bool(explained[flips].all()), f"projection {name}: radii or "
+              f"valid differ at {int((flips & ~explained).sum())} Gaussians "
+              f"off a ceil step, an edge and the near plane")
+        line["radii_valid_steps"] = int(flips.sum())
+
+        g = torch.Generator(device=dev).manual_seed(n)
+        cots = [torch.randn(n, c, generator=g, device=dev) * s
+                for c, s in ((2, 1.0), (3, 1e-2), (3, 1.0))]
+        pack = torch.cat(cots + [torch.zeros(n, 1, device=dev)], 1)
+        grads = proj.project_bwd_cuda(*args[:3], args[4], 3, camera, 1.0,
+                                      pack[:, 0:2], pack[:, 2:5],
+                                      pack[:, 5:8])
+        plain = proj.project_bwd_plain(*args[:3], args[4], 3, camera, 1.0,
+                                       *cots)
+        rel = {}
+        for leaf, a, b in zip(("means3d", "scales", "quats", "shs",
+                               "means2d_offset"), grads, plain):
+            rel[leaf] = float((a - b).abs().max() / b.abs().max())
+            check(rel[leaf] <= TOL_PROJECTION_GRAD, f"projection {name}: "
+                  f"gradient of {leaf} off by {rel[leaf]}")
+        line["grad_rel"] = rel
+        print(f"[projection] {name}: {line}")
+        result["cases"][name] = line
+
+    # times at the two shapes the main path uses, beside the HBM bound:
+    # bytes each input read once and each output written once
+    nb = num_sh_coeffs(3)
+    fwd_bytes = 12 + 12 + 16 + 4 + 12 * nb + 8 + (8 + 4 + 12 + 12 + 4 + 1
+                                                  + 4 + 4 + 4 + 4)
+    bwd_bytes = (12 + 12 + 16 + 12 * nb + 8 + 12 + 12) + (12 + 12 + 16
+                                                          + 12 * nb + 8)
+    for name, args, camera in cases[:2]:
+        n = args[0].shape[0]
+        off = torch.zeros(n, 2, device=dev)
+        pack = torch.randn(n, 9, device=dev)
+        cot = (pack[:, 0:2], pack[:, 2:5], pack[:, 5:8])
+        times = dict(
+            fwd_ms=cuda_ms(lambda: proj.project_fwd_cuda(
+                *args, 3, camera, 1.0, off), timed),
+            bwd_ms=cuda_ms(lambda: proj.project_bwd_cuda(
+                *args[:3], args[4], 3, camera, 1.0, *cot), timed),
+            fwd_plain_ms=cuda_ms(lambda: proj.project_fwd_plain(
+                *args, 3, camera, 1.0, off), 1),
+            bwd_plain_ms=cuda_ms(lambda: proj.project_bwd_plain(
+                *args[:3], args[4], 3, camera, 1.0, *cot), 1),
+            fwd_bytes=fwd_bytes * n, bwd_bytes=bwd_bytes * n,
+            fwd_bound_ms=1e3 * fwd_bytes * n / PEAK_HBM_BYTES,
+            bwd_bound_ms=1e3 * bwd_bytes * n / PEAK_HBM_BYTES)
+        print(f"[projection] {name} times: {times}")
+        result["cases"][name]["times"] = times
+
+    # the tracer's counter: one a render, graphed or not, and one a step
+    ca = loop.camera_arrays(bench_cam)
+    bg = torch.ones(3, device=dev)
+    render = loop.make_render_fn(model, PipelineConfig(), *sizes["bench"],
+                                 model.active_sh_degree)
+    for t in range(2):                      # eager, then the capture
+        render(model.params, model.flame_param, model.binding, ca, bg, t)
+    opt_cfg = OptimizationConfig()
+    state = loop.initial_state(model)
+    fixed = {k: v for k, v in model.flame_param.items()
+             if k not in state.flame_tr}
+    step = loop.make_train_step(model, opt_cfg, PipelineConfig(),
+                                *sizes["bench"], model.active_sh_degree,
+                                model.num_timesteps)
+    gt = torch.rand(3, sizes["bench"][1], sizes["bench"][0], device=dev)
+    lrs = loop.lr_pytree(opt_cfg, 1e-3, state.flame_tr, 1.0)
+    trace.stop()
+    trace.start()
+    try:
+        for t in range(4):
+            render(model.params, model.flame_param, model.binding, ca, bg, t)
+        for t in range(3):
+            state, _, _ = step(state, fixed, model.binding, ca, gt, bg, t,
+                               lrs)
+        records = trace.drain()
+    finally:
+        trace.stop()
+    per_root = {}
+    for r in records:
+        root = r
+        while root.parent is not None:
+            root = root.parent
+        key = (root.name, id(root))
+        per_root[key] = per_root.get(key, 0) + r.counters.get(
+            trace.PROJECTIONS_FUSED, 0)
+    counts = {}
+    for (root, _), c in per_root.items():
+        counts.setdefault(root, []).append(c)
+    print(f"[projection] projections_fused a root span: {counts}")
+    check(counts == {"render": [1] * 4, "train_step": [1] * 3},
+          f"projections_fused counted {counts}")
+    result["projections_fused"] = counts
+    return result
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3052,7 +3310,7 @@ def main(argv=None) -> int:
     )
     from gaussianavatars_torch.config import OptimizationConfig, PipelineConfig
     from gaussianavatars_torch.device import resolve_device
-    from gaussianavatars_torch.ops import tile_blend
+    from gaussianavatars_torch.ops import projection, tile_blend
     from gaussianavatars_torch.ops.rasterize_tiles import rasterize
     from gaussianavatars_torch.profile_render import range_stats
     from gaussianavatars_torch.train.loop import (
@@ -3081,7 +3339,8 @@ def main(argv=None) -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:   # the counting build beside it
-        counting = pool.submit(kernels.build, None, COUNTING)
+        counting = pool.submit(kernels.build, ("blend_fwd", "blend_bwd"),
+                               COUNTING)
         logs = kernels.build()
         counting.result()
     build_s = time.perf_counter() - t0
@@ -3306,7 +3565,9 @@ def main(argv=None) -> int:
     state, _, _ = train(state, 1)
     torch.cuda.synchronize()
     counted = {"blend_fwd": tile_blend.blend_image_cuda,
-               "blend_bwd": tile_blend.blend_image_bwd_cuda}
+               "blend_bwd": tile_blend.blend_image_bwd_cuda,
+               "project_fwd": projection.project_fwd_cuda,
+               "project_bwd": projection.project_bwd_cuda}
     for fn in counted.values():
         fn.launches = 0
     step_losses = []
@@ -3459,6 +3720,10 @@ def main(argv=None) -> int:
         # ---- 14. the render's captured prefix against the eager render -----
         print(json.dumps(dict(what="graph", **graph_phase(dev))))
         lap("graph")
+        # ---- 15. the projection kernels against the plain versions ---------
+        projection_line = projection_phase(dev)
+        print(json.dumps(dict(what="projection", **projection_line)))
+        lap("projection")
     finally:
         if saved_env is None:
             os.environ.pop("FLAME_ASSET_DIR", None)
@@ -3584,7 +3849,23 @@ def main(argv=None) -> int:
         "bound_ms": k2_bound["ms"],
         "bound_by": k2_bound["by"],
         "library_ms": None,
-    }]}
+    }] + [{
+        "name": f"project_{way}",
+        "route": "cuda",
+        "source": "gaussianavatars_torch/csrc/project.cu",
+        "replaces": None,
+        "launches": train_launches[f"project_{way}"],
+        "shapes": {case: line["gaussians"] for case, line in
+                   projection_line["cases"].items() if "times" in line},
+        "ms": {case: line["times"][f"{way}_ms"] for case, line in
+               projection_line["cases"].items() if "times" in line},
+        "plain_ms": {case: line["times"][f"{way}_plain_ms"] for case, line
+                     in projection_line["cases"].items() if "times" in line},
+        "bound_ms": {case: line["times"][f"{way}_bound_ms"] for case, line
+                     in projection_line["cases"].items() if "times" in line},
+        "bound_by": "bytes",
+        "library_ms": None,
+    } for way in ("fwd", "bwd")]}
     lap("counting_build")
     print(json.dumps(dict(what="phase_seconds", **phase_s,
                           total=round(sum(phase_s.values()), 2))))

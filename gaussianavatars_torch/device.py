@@ -29,3 +29,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def route(t: torch.Tensor, cuda_fn, plain_fn):
+    """`cuda_fn` (a kernel's wrapper) for a tensor on a CUDA device,
+    `plain_fn` (its plain version) for one on the CPU; nothing falls back
+    from one to the other, and any other device raises."""
+    if t.device.type == "cuda":
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"no kernel and no plain version for device {t.device}")

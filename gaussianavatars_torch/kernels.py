@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` exposes a plain C interface. It is compiled with
 `nvcc` for Hopper (`sm_90a`) into a shared library under `_build/` (listed
 in `.gitignore`) the first time it is used, and loaded with ctypes. A
 library's file name carries a hash of its source, of every header under
-the source directory that it includes, and of the `-D` defines it was
-built with, so an edited kernel or header is rebuilt. A missing `nvcc` or a
+the source directory that it includes, and of the flags it was built with
+beyond NVCC_FLAGS (its `SOURCE_FLAGS` and the `-D` defines), so an edited
+kernel or header is rebuilt. A missing `nvcc` or a
 failed build raises: there is no fallback.
 
 `defines` (`["GA_COUNT=1"]`, the counting build) and `csrc` (another source
@@ -31,7 +32,11 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # kernel name -> source file under csrc/
-SOURCES = {"blend_fwd": "blend_fwd.cu", "blend_bwd": "blend_bwd.cu"}
+SOURCES = {"blend_fwd": "blend_fwd.cu", "blend_bwd": "blend_bwd.cu",
+           "project": "project.cu"}
+# nvcc flags of one kernel beside NVCC_FLAGS: the projection rounds each
+# operation on its own, as its plain version's elementwise ops do
+SOURCE_FLAGS = {"project": ("-fmad=false",)}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,21 +77,23 @@ def library_path(name: str, defines=(), csrc=None) -> Path:
     digest = hashlib.sha256()
     for path in source_files(name, csrc):
         digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    for define in defines:
-        digest.update(define.encode() + b"\0")
+    for flag in (*SOURCE_FLAGS.get(name, ()), *defines):
+        digest.update(flag.encode() + b"\0")
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None, defines=(), csrc=None) -> dict[str, str]:
-    """Compile the named kernels (all by default) that are not built yet,
-    one `nvcc` per source, all started together.
+    """Compile the named kernels (by default every one whose source the
+    directory holds) that are not built yet, one `nvcc` per source, all
+    started together.
 
     Returns {name: compiler output} (the `-Xptxas -v` register and spill
     report) for every kernel named, read from the build log when the
     library was already there.
     """
-    names = list(SOURCES) if names is None else list(names)
     src_dir = Path(csrc) if csrc is not None else CSRC_DIR
+    names = ([n for n in SOURCES if (src_dir / SOURCES[n]).exists()]
+             if names is None else list(names))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -94,7 +101,8 @@ def build(names=None, defines=(), csrc=None) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(src_dir),
+        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()),
+               "-I", str(src_dir),
                *(f"-D{d}" for d in defines), "-o", str(tmp),
                str(src_dir / SOURCES[name])]
         procs[name] = (subprocess.Popen(
@@ -118,11 +126,14 @@ def build(names=None, defines=(), csrc=None) -> dict[str, str]:
 
 
 def load(name: str, defines=(), csrc=None) -> ctypes.CDLL:
-    """The kernel library `name`, built on first use."""
+    """The kernel library `name`, built on first use. The default build
+    compiles every kernel in one `build` the first time any is loaded, so
+    a cold start waits for one batch of `nvcc`s."""
     key = (name, tuple(defines), None if csrc is None else str(csrc))
     lib = _loaded.get(key)
     if lib is None:                 # the sources are hashed once a process
-        build([name], defines, csrc)
+        default = not defines and csrc is None
+        build(None if default else [name], defines, csrc)
         lib = ctypes.CDLL(str(library_path(name, defines, csrc)))
         _loaded[key] = lib
     return lib

@@ -2,7 +2,9 @@
 `gaussianavatars_tpu/ops/rasterize_tiles.py::rasterize`), differentiable
 through autograd.
 
-  projection  ops/projection.py     per-gaussian elementwise torch
+  projection  ops/projection.py     kernels project_fwd / project_bwd
+                                    (csrc/project.cu) on CUDA, plain torch
+                                    on CPU, through `ProjectGaussians`
   binning     ops/binning_dense.py  duplicated-key sort, exact shapes
               ops/binning.py        (`binning="sort"`) rect expansion and one
                                     stable sort by tile; the inputs of both

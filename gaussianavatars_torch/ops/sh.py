@@ -1,6 +1,8 @@
 """Real spherical-harmonics evaluation, degrees 0..4 (port of
-`gaussianavatars_tpu/ops/sh.py`, reference utils/sh_utils.py:57-118;
-autograd gives the backward).
+`gaussianavatars_tpu/ops/sh.py`, reference utils/sh_utils.py:57-118).
+`sh_basis_vjp` is the basis's closed-form gradient along the direction,
+for `ops/projection.py::project_bwd_plain` (which kernel `project_bwd`
+mirrors); autograd differentiates the rest.
 
 The render path's coefficients use the flat CHANNEL-major layout [N, 3*K]
 ([all K red | all K green | all K blue]), the production layout of
@@ -145,6 +147,78 @@ def sh_basis(degree: int, dirs: torch.Tensor, k: int) -> torch.Tensor:
     cols = cols[:k]
     cols += [torch.zeros_like(x)] * (k - len(cols))
     return torch.stack(cols, dim=-1)
+
+
+def sh_basis_vjp(degree: int, dirs: torch.Tensor,
+                 g_basis: torch.Tensor) -> torch.Tensor:
+    """The gradient [..., 3] along `dirs` of sum_k g_basis[..., k] times
+    the basis function k of `sh_basis`, from each function's closed-form
+    partials (the columns past (degree+1)^2 are constant)."""
+    assert 0 <= degree <= 4
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    g = [g_basis[..., k] for k in range(min(g_basis.shape[-1],
+                                             (degree + 1) ** 2))]
+    zero = torch.zeros_like(x)
+    gx, gy, gz = zero, zero, zero
+    # (k, d/dx, d/dy, d/dz) of each basis function past the constant
+    terms = []
+    if degree > 0:
+        terms += [(1, None, -_C1, None), (2, None, None, _C1),
+                  (3, -_C1, None, None)]
+    if degree > 1:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        terms += [
+            (4, _C2[0] * y, _C2[0] * x, None),
+            (5, None, _C2[1] * z, _C2[1] * y),
+            (6, -2.0 * _C2[2] * x, -2.0 * _C2[2] * y, 4.0 * _C2[2] * z),
+            (7, _C2[3] * z, None, _C2[3] * x),
+            (8, 2.0 * _C2[4] * x, -2.0 * _C2[4] * y, None),
+        ]
+    if degree > 2:
+        terms += [
+            (9, _C3[0] * 6.0 * xy, _C3[0] * 3.0 * (xx - yy), None),
+            (10, _C3[1] * yz, _C3[1] * xz, _C3[1] * xy),
+            (11, _C3[2] * -2.0 * xy, _C3[2] * (4.0 * zz - xx - 3.0 * yy),
+             _C3[2] * 8.0 * yz),
+            (12, _C3[3] * -6.0 * xz, _C3[3] * -6.0 * yz,
+             _C3[3] * (6.0 * zz - 3.0 * xx - 3.0 * yy)),
+            (13, _C3[4] * (4.0 * zz - 3.0 * xx - yy), _C3[4] * -2.0 * xy,
+             _C3[4] * 8.0 * xz),
+            (14, _C3[5] * 2.0 * xz, _C3[5] * -2.0 * yz, _C3[5] * (xx - yy)),
+            (15, _C3[6] * 3.0 * (xx - yy), _C3[6] * -6.0 * xy, None),
+        ]
+    if degree > 3:
+        terms += [
+            (16, _C4[0] * y * (3.0 * xx - yy), _C4[0] * x * (xx - 3.0 * yy),
+             None),
+            (17, _C4[1] * 6.0 * xy * z, _C4[1] * 3.0 * z * (xx - yy),
+             _C4[1] * y * (3.0 * xx - yy)),
+            (18, _C4[2] * y * (7.0 * zz - 1.0), _C4[2] * x * (7.0 * zz - 1.0),
+             _C4[2] * 14.0 * xy * z),
+            (19, None, _C4[3] * z * (7.0 * zz - 3.0),
+             _C4[3] * y * (21.0 * zz - 3.0)),
+            (20, None, None, _C4[4] * z * (140.0 * zz - 60.0)),
+            (21, _C4[5] * z * (7.0 * zz - 3.0), None,
+             _C4[5] * x * (21.0 * zz - 3.0)),
+            (22, _C4[6] * 2.0 * x * (7.0 * zz - 1.0),
+             _C4[6] * -2.0 * y * (7.0 * zz - 1.0),
+             _C4[6] * 14.0 * z * (xx - yy)),
+            (23, _C4[7] * 3.0 * z * (xx - yy), _C4[7] * -6.0 * xy * z,
+             _C4[7] * x * (xx - 3.0 * yy)),
+            (24, _C4[8] * 4.0 * x * (xx - 3.0 * yy),
+             _C4[8] * 4.0 * y * (yy - 3.0 * xx), None),
+        ]
+    for k, dx, dy, dz in terms:
+        if k >= len(g):
+            break
+        if dx is not None:
+            gx = gx + g[k] * dx
+        if dy is not None:
+            gy = gy + g[k] * dy
+        if dz is not None:
+            gz = gz + g[k] * dz
+    return torch.stack([gx, gy, gz], dim=-1)
 
 
 def eval_sh_flat_cmajor(degree: int, sh2c: torch.Tensor,

@@ -44,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from gaussianavatars_torch import kernels
+from gaussianavatars_torch.device import route as _route
 from gaussianavatars_torch.ops.binning_dense import _box_qmin, tile_grid
 from gaussianavatars_torch.ops.instance_pack import PACK_COLS
 from gaussianavatars_torch.utils.trace import span
@@ -77,14 +78,6 @@ def blend_image(inst, ranges, py_offset: int, width: int, height: int,
     """
     return BlendImage.apply(inst, ranges, py_offset, width, height,
                             tile_size)
-
-
-def _route(inst, cuda_fn, plain_fn):
-    if inst.device.type == "cuda":
-        return cuda_fn
-    if inst.device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"no blend for device {inst.device}")
 
 
 class BlendImage(torch.autograd.Function):

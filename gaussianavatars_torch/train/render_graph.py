@@ -36,6 +36,7 @@ from typing import Callable, Optional
 import torch
 
 from gaussianavatars_torch.models.flame_gaussians import TIMESTEP_KEYS
+from gaussianavatars_torch.ops import projection
 from gaussianavatars_torch.ops.projection import (
     CameraParams,
     ProjectedGaussians,
@@ -68,7 +69,8 @@ def _timestep_index(flame_param: dict, timestep) -> int:
 
 class _Captured:
     """One captured prefix: its key, its static inputs (the timestep index
-    and the camera's matrices), the graph and its static outputs."""
+    and the camera's matrices), the graph and its static outputs, and
+    `fused`, the projection kernels' forward launches it holds."""
 
     def __init__(self, key, project: Callable, params, flame_param, binding,
                  camera: CameraParams, timestep: int, scaling_modifier):
@@ -89,11 +91,13 @@ class _Captured:
         with torch.cuda.stream(stream):
             run()               # lazy set-up (library handles) off the graph
         self.graph = torch.cuda.CUDAGraph()
+        launches = projection.project_fwd_cuda.launches
         # thread_local: the loader's and the viewer's threads may use the
         # card while this thread captures
         with torch.cuda.graph(self.graph, stream=stream,
                               capture_error_mode="thread_local"):
             self.out: ProjectedGaussians = run()
+        self.fused = projection.project_fwd_cuda.launches - launches
         torch.cuda.current_stream(dev).wait_stream(stream)
 
     def write(self, camera: CameraParams, timestep: int):
@@ -170,4 +174,7 @@ class PrefixGraph:
                                           flame_param, binding, camera, t,
                                           scaling_modifier)
             trace.count(trace.GRAPH_REPLAYS)
+            # the projection's counter, as the eager path counts it
+            if self.captured.fused:
+                trace.count(trace.PROJECTIONS_FUSED, self.captured.fused)
             return self.captured.replay(camera, t)

@@ -21,7 +21,11 @@ replays its captured prefix (`train/render_graph.py`) opens
 "graph_replay" under "render", which counts 1 in "graph_replays" and,
 when it captured the graph first, 1 in "graph_captures"; "flame_frames",
 "binding" and "projection" then open and close with no work in them
-(`count` adds to the innermost span).
+(`count` adds to the innermost span). Each call of the projection's
+autograd function (`ops/projection.py::ProjectGaussians`, its kernels on
+the card) counts 1 in "projections_fused"; a replay counts the calls its
+graph captured, and the render that captures also counts its eager
+warm-up and its captured call.
 
 Three things may watch a span, each without the others:
 
@@ -58,6 +62,7 @@ HOST_SYNCS = "host_syncs"
 GRAPH_REPLAYS, GRAPH_CAPTURES = "graph_replays", "graph_captures"
 SLOTS_EXPANDED, SLOTS_KEPT = "slots_expanded", "slots_kept"
 LOADER_DECODES = "loader_decodes"
+PROJECTIONS_FUSED = "projections_fused"
 RANGE_PREFIX = "ga:"
 COUNT_PREFIX = "ga.count:"
 

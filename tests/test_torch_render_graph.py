@@ -155,6 +155,7 @@ class _PlainCapture:
         self.resets = 0
         self.graph = types.SimpleNamespace(reset=self._reset)
         self.out = None
+        self.fused = 0          # each replay projects and counts itself
         _PlainCapture.made.append(self)
 
     def _reset(self):
