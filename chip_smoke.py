@@ -2317,8 +2317,7 @@ def _parallel_rank(rank, world, root, device, width, height, n_per_face,
         sync()
         reset()
         t0 = time.perf_counter()
-        s2, l2, _ = step(s2, fixed2, m2.binding[rows], cam, gt, bg, 1, lrs2,
-                         n)
+        s2, l2, _ = step(s2, fixed2, m2.binding, cam, gt, bg, 1, lrs2)
         sync()
         out["step_ms"] = 1e3 * (time.perf_counter() - t0)
         out["step_launches"] = launches()

@@ -64,6 +64,9 @@ class Mesh:
         return slice(start, min(start + rows, n))
 
 
+LOCAL_MESH = Mesh(1, 1)      # one process, without torch.distributed
+
+
 def make_mesh(n_data: int = 1, n_prim: Optional[int] = None) -> Mesh:
     """The ('data', 'prim') mesh over the ranks of the default process
     group (`torch.distributed` initialized, e.g. by

@@ -8,7 +8,7 @@ densification, opacity resets, evaluation, saving and checkpoints).
 (`utils/tensorboard.py`) as the JAX loop does. With
 `PipelineConfig.data_parallel` / `render_parallel` (or under
 `torch.distributed`) it trains over the process mesh of `parallel/`
-(`make_parallel_train_step`). Left out, as TPU devices: capacity and
+with the same train step. Left out, as TPU devices: capacity and
 level-bucket growth, the overflow probes and the asynchronous
 precompilation.
 """
@@ -19,6 +19,7 @@ import json
 import os
 import time
 import traceback
+from contextlib import nullcontext
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -50,6 +51,20 @@ from gaussianavatars_torch.ops.projection import (
 from gaussianavatars_torch.ops.rasterize_tiles import RenderOutput, rasterize
 from gaussianavatars_torch.ops.sh import eval_sh
 from gaussianavatars_torch.ops.ssim import ssim
+from gaussianavatars_torch.parallel.mesh import (
+    LOCAL_MESH,
+    Mesh,
+    make_mesh,
+    mesh_device,
+)
+from gaussianavatars_torch.parallel.sharded import (
+    all_reduce,
+    broadcast_flag,
+    gather_state,
+    mesh_totals,
+    rasterize_on,
+    shard_state,
+)
 from gaussianavatars_torch.train import optim
 from gaussianavatars_torch.train.losses import compute_losses
 from gaussianavatars_torch.train.render_graph import PrefixGraph
@@ -137,6 +152,12 @@ def _precomputed(pipe_cfg: PipelineConfig, camera: CameraParams, means3d,
     return out
 
 
+def _quiet(name: str):
+    """A stage that opens no span and calls no mark (the prefix's
+    capture)."""
+    return nullcontext()
+
+
 def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
                    sh_degree: int, differentiable: bool = False):
     """Inference render of `model` at width x height.
@@ -163,18 +184,29 @@ def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
     _check_pipeline(pipe_cfg)
     bound = model.binding is not None
 
-    def project(params, flame_param, binding, camera, timestep,
-                scaling_modifier):
-        """The prefix as the graph captures it: the eager path's calls from
-        FLAME to the projection, without spans."""
-        frames = model.face_frames_at(flame_param, timestep) if bound else None
-        means3d, scales, quats, opac, shs = world_space_gaussians(
-            params, binding, frames)
-        return project_gaussians(
-            means3d, scales, quats, opac, shs, sh_degree, camera,
+    def prefix(params, flame_param, binding, camera, timestep,
+               scaling_modifier, stage):
+        """FLAME to the world-space Gaussians and the projection's options,
+        each stage inside `stage(name)`: the calls of the captured prefix
+        and of the eager render alike."""
+        frames = None
+        if bound:
+            with stage("flame_frames"):
+                frames = model.face_frames_at(flame_param, timestep)
+        with stage("binding"):
+            gaussians = means3d, scales, quats, _, shs = \
+                world_space_gaussians(params, binding, frames)
+        return gaussians, dict(
             scaling_modifier=scaling_modifier,
             **_precomputed(pipe_cfg, camera, means3d, scales, quats, shs,
                            sh_degree))
+
+    def project(params, flame_param, binding, camera, timestep,
+                scaling_modifier):
+        """The prefix as the graph captures it: no span, no mark."""
+        gaussians, options = prefix(params, flame_param, binding, camera,
+                                    timestep, scaling_modifier, _quiet)
+        return project_gaussians(*gaussians, sh_degree, camera, **options)
 
     graph = None if differentiable else PrefixGraph(
         model, project, sh_degree,
@@ -185,35 +217,30 @@ def make_render_fn(model, pipe_cfg: PipelineConfig, width: int, height: int,
                scaling_modifier: float = 1.0) -> RenderOutput:
         with span("render"):
             camera = _camera(cam, width, height)
+            binding = binding if bound else None
             proj = None if graph is None else graph(
-                params, flame_param, binding if bound else None, camera,
-                timestep, scaling_modifier)
-            if proj is not None:
-                if bound:
-                    with span("flame_frames", mark):
-                        pass
-                with span("binding", mark):
-                    pass
-                out = rasterize(None, None, None, None, None, sh_degree,
-                                camera, bg, tile_size=pipe_cfg.tile_size,
-                                binning=pipe_cfg.binning, mark=mark,
-                                projected=proj)
-                # the graph's outputs are overwritten at its next replay
-                return out._replace(radii=out.radii.clone(),
-                                    visibility=out.visibility.clone())
-            frames = None
+                params, flame_param, binding, camera, timestep,
+                scaling_modifier)
+            if proj is None:
+                gaussians, options = prefix(
+                    params, flame_param, binding, camera, timestep,
+                    scaling_modifier, lambda name: span(name, mark))
+                return rasterize(*gaussians, sh_degree, camera, bg,
+                                 tile_size=pipe_cfg.tile_size,
+                                 binning=pipe_cfg.binning, mark=mark,
+                                 **options)
             if bound:
                 with span("flame_frames", mark):
-                    frames = model.face_frames_at(flame_param, timestep)
+                    pass
             with span("binding", mark):
-                means3d, scales, quats, opac, shs = world_space_gaussians(
-                    params, binding if bound else None, frames)
-            return rasterize(means3d, scales, quats, opac, shs, sh_degree,
-                             camera, bg, tile_size=pipe_cfg.tile_size,
-                             binning=pipe_cfg.binning,
-                             scaling_modifier=scaling_modifier, mark=mark,
-                             **_precomputed(pipe_cfg, camera, means3d,
-                                            scales, quats, shs, sh_degree))
+                pass
+            out = rasterize(None, None, None, None, None, sh_degree, camera,
+                            bg, tile_size=pipe_cfg.tile_size,
+                            binning=pipe_cfg.binning, mark=mark,
+                            projected=proj)
+            # the graph's outputs are overwritten at its next replay
+            return out._replace(radii=out.radii.clone(),
+                                visibility=out.visibility.clone())
 
     return render if differentiable else torch.no_grad()(render)
 
@@ -270,8 +297,10 @@ def lr_pytree(opt_cfg: OptimizationConfig, xyz_lr: float, flame_tr: dict,
 
 def make_train_step(model, opt_cfg: OptimizationConfig,
                     pipe_cfg: PipelineConfig, width: int, height: int,
-                    sh_degree: int, num_timesteps: int):
-    """The train step of `model` at width x height.
+                    sh_degree: int, num_timesteps: Optional[int] = None,
+                    mesh: Mesh = LOCAL_MESH, *, subjects: bool = False):
+    """The train step of `model` at width x height, on this rank's part of
+    `mesh` (by default the local mesh: one process, the whole model).
 
     Returns step(state, flame_fixed, binding, cam, gt_image, bg, timestep,
     lrs, mark=None) -> (new_state, losses, instance_total). One call drives
@@ -292,10 +321,28 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
     "flame_frames" (bound only), "binding", the rasterizer's stages,
     "forward" (the loss), "backward", "adam" and "stats" as each phase is
     issued.
+
+    On a mesh of several ranks (`parallel/sharded.py` holds the
+    collectives, each the identity where its axis has one rank) `state` is
+    the rank's prim shard (`shard_state`), `binding` the model's full
+    binding, whose shard the step takes, and the view this data group's of
+    the batch. The loss is the mean over 'data': the gradients are averaged
+    over 'data' and FLAME's summed over 'prim'; `grad_accum` and `denom`
+    sum over 'data' and `max_radii2d` takes the max; the losses are the
+    true totals on every rank and instance_total the largest slab's. With
+    `subjects` (`make_multisubject_train_step`) each data group trains a
+    model of its own: nothing is reduced over 'data', and the FLAME
+    regularizers are left out.
     """
     _check_pipeline(pipe_cfg)
     bound = model.binding is not None
+    n_prim = mesh.shape["prim"]
     del num_timesteps       # timesteps index the FLAME tensors directly
+
+    def over_data(tensors: list, op: str) -> list:
+        """The tensors reduced over 'data', whose groups saw the batch's
+        other views; as they are for the subjects."""
+        return tensors if subjects else all_reduce(tensors, mesh, "data", op)
 
     def step(state: StepState, flame_fixed: dict, binding,
              cam: CameraArrays, gt_image: torch.Tensor, bg: torch.Tensor,
@@ -303,6 +350,9 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
              mark: Optional[Callable[[str], None]] = None):
         with span("train_step"):
             camera = _camera(cam, width, height)
+            n = model.num_gaussians
+            if bound and n_prim > 1:
+                binding = binding[mesh.shard(n)]
             params = GaussianParams(*[p.detach().requires_grad_()
                                       for p in state.params])
             flame_tr = {k: v.detach().requires_grad_()
@@ -324,20 +374,21 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
                         world_space_gaussians(
                             params, binding if bound else None, frames,
                             return_face_scale=True)
-                out = rasterize(means3d, scales, quats, opac, shs, sh_degree,
-                                camera, bg, tile_size=pipe_cfg.tile_size,
-                                binning=pipe_cfg.binning,
-                                means2d_offset=offset, mark=mark,
-                                **_precomputed(pipe_cfg, camera, means3d,
-                                               scales, quats, shs, sh_degree))
+                out = rasterize_on(
+                    mesh, means3d, scales, quats, opac, shs, sh_degree,
+                    camera, bg, num_gaussians=n,
+                    tile_size=pipe_cfg.tile_size, binning=pipe_cfg.binning,
+                    means2d_offset=offset, mark=mark,
+                    **_precomputed(pipe_cfg, camera, means3d, scales, quats,
+                                   shs, sh_degree))
                 with span("forward", mark):
                     total, losses = compute_losses(
                         out.image, gt_image, out.visibility, params.xyz,
-                        params.scaling, face_scale, opt_cfg, bound)
-                    if bound:
+                        params.scaling, face_scale, opt_cfg, bound, mesh)
+                    if bound and not subjects:
                         total = _flame_regularizers(
                             model, opt_cfg, flame_full, timestep, verts_cano,
-                            total, losses)
+                            total, losses, n_prim)
                     losses["total"] = total
                 with span("backward", mark):
                     leaves = [*params, *flame_tr.values(), offset]
@@ -346,8 +397,12 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
                     grads = [torch.zeros_like(x) if g is None else g
                              for x, g in zip(leaves, grads)]
                     n_p = len(params)
+                    # the loss is the mean over the batch: every gradient
+                    # averaged over 'data', FLAME's then summed over 'prim'
+                    grads = over_data(grads[:-1], "mean") + grads[-1:]
                     g_params = GaussianParams(*grads[:n_p])
-                    g_flame = dict(zip(flame_tr, grads[n_p:-1]))
+                    g_flame = dict(zip(flame_tr, all_reduce(
+                        grads[n_p:-1], mesh, "prim")))
                     g_offset = grads[-1]
 
             with span("adam", mark):
@@ -361,71 +416,49 @@ def make_train_step(model, opt_cfg: OptimizationConfig,
             with span("stats", mark), torch.no_grad():
                 vis = out.visibility
                 grad_norm = torch.linalg.norm(g_offset, dim=-1)
-                state.grad_accum.add_(torch.where(vis, grad_norm, 0.0))
-                state.denom.add_(vis.to(torch.float32))
-                torch.maximum(
-                    state.max_radii2d,
-                    torch.where(vis, out.radii.to(torch.float32), 0.0),
-                    out=state.max_radii2d)
-            new_state = StepState(
+                accum, = over_data([torch.where(vis, grad_norm, 0.0)], "sum")
+                state.grad_accum.add_(accum)
+                denom, = over_data([vis.to(torch.float32)], "sum")
+                state.denom.add_(denom)
+                radii, = over_data([torch.where(
+                    vis, out.radii.to(torch.float32), 0.0)], "max")
+                torch.maximum(state.max_radii2d, radii,
+                              out=state.max_radii2d)
+            new_state = state._replace(
                 params=new_p["gauss"], flame_tr=new_p["flame"], mu=mu, nu=nu,
-                count=count, max_radii2d=state.max_radii2d,
-                grad_accum=state.grad_accum, denom=state.denom)
+                count=count)
             losses = {k: v.detach() for k, v in losses.items()}
-            return new_state, losses, out.instance_total
-
-    return step
-
-
-def make_parallel_train_step(mesh, model, opt_cfg: OptimizationConfig,
-                             pipe_cfg: PipelineConfig, width: int,
-                             height: int, sh_degree: int):
-    """The train step of `training`'s parallel branch: the contract of
-    `make_train_step` (without `mark`) around
-    `parallel/sharded.py::make_sharded_train_step`, on this rank's part.
-    `state` is the rank's prim shard (`parallel/sharded.py::shard_state`),
-    `binding` the model's full binding (the step takes the shard's rows)
-    and the view is this rank's data group's camera of the batch; one
-    optimizer step consumes the batch of `mesh.shape["data"]` views.
-    `model.num_gaussians` is the total the shards add up to.
-    """
-    from gaussianavatars_torch.parallel.sharded import make_sharded_train_step
-
-    raw = make_sharded_train_step(mesh, model, opt_cfg, pipe_cfg, width,
-                                  height, sh_degree)
-
-    def step(state: StepState, flame_fixed: dict, binding,
-             cam: CameraArrays, gt_image, bg, timestep: int, lrs: dict):
-        n = model.num_gaussians
-        if binding is not None:
-            binding = binding[mesh.shard(n)]
-        return raw(state, flame_fixed, binding, cam, gt_image, bg, timestep,
-                   lrs, n)
+            return (new_state,
+                    *mesh_totals(losses, out.instance_total, mesh))
 
     return step
 
 
 def _flame_regularizers(model, opt_cfg: OptimizationConfig,
                         flame_full: dict, timestep: int,
-                        verts_cano: torch.Tensor, total, losses: dict):
+                        verts_cano: torch.Tensor, total, losses: dict,
+                        n_prim: int = 1):
     """Add the weighted FLAME regularizers whose weights are non-zero to
     `losses` (`dy_off`, `dynamic_offset_std`, `lap`, in that order) and
-    return `total` with them."""
+    return `total` with them. Each carries 1/n_prim: every prim rank of a
+    mesh computes it on the replicated FLAME parameters."""
+
+    def add(name, value):
+        losses[name] = value if n_prim == 1 else value / n_prim
+        return total + losses[name]
+
     with span("flame_reg"):
         if opt_cfg.lambda_dynamic_offset != 0.0:
-            losses["dy_off"] = model.compute_dynamic_offset_loss(
-                flame_full, timestep) * opt_cfg.lambda_dynamic_offset
-            total = total + losses["dy_off"]
+            total = add("dy_off", model.compute_dynamic_offset_loss(
+                flame_full, timestep) * opt_cfg.lambda_dynamic_offset)
         if opt_cfg.lambda_dynamic_offset_std != 0.0:
             # the population standard deviation over timesteps (jnp.std)
             std = flame_full["dynamic_offset"].std(dim=0, correction=0).mean()
-            losses["dynamic_offset_std"] = \
-                std * opt_cfg.lambda_dynamic_offset_std
-            total = total + losses["dynamic_offset_std"]
+            total = add("dynamic_offset_std",
+                        std * opt_cfg.lambda_dynamic_offset_std)
         if opt_cfg.lambda_laplacian != 0.0:
-            losses["lap"] = model.compute_laplacian_loss(
-                flame_full, timestep, verts_cano) * opt_cfg.lambda_laplacian
-            total = total + losses["lap"]
+            total = add("lap", model.compute_laplacian_loss(
+                flame_full, timestep, verts_cano) * opt_cfg.lambda_laplacian)
     return total
 
 
@@ -568,7 +601,7 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     their moments and statistics; one optimizer step consumes
     `data_parallel` cameras of one resolution, drawn alike on every rank
     from the identically seeded loader, each rank taking its data group's
-    (`make_parallel_train_step`). Densification, opacity resets, saving,
+    (`make_train_step` on the mesh). Densification, opacity resets, saving,
     checkpoints, evaluation and the viewer gather the full model to every
     rank; the surgery runs alike on each (same seed) and the state is
     sharded again. Rank 0 alone prints, writes the PLY, checkpoints, the
@@ -586,22 +619,15 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
     from gaussianavatars_torch.data.scene import Scene
 
     dev = resolve_device(device)
-    mesh = None
     n_data = max(1, pipe_cfg.data_parallel)
-    if n_data * max(1, pipe_cfg.render_parallel) > 1 or dist.is_initialized():
-        from gaussianavatars_torch.parallel.mesh import make_mesh, mesh_device
-        from gaussianavatars_torch.parallel.sharded import (
-            gather_state,
-            shard_state,
-        )
-
-        mesh = make_mesh(n_data, max(1, pipe_cfg.render_parallel))
+    mesh = make_mesh(n_data, max(1, pipe_cfg.render_parallel))
+    if not mesh.local:
         if mesh.size != dist.get_world_size():
             raise ValueError(
                 f"a {n_data} x {pipe_cfg.render_parallel} mesh trains on "
                 f"{mesh.size} ranks; the world has {dist.get_world_size()}")
         dev = mesh_device(dev)
-    lead = mesh is None or dist.get_rank() == 0
+    lead = mesh.local or dist.get_rank() == 0
     log = print if lead else (lambda *args, **kwargs: None)
     if not lead:
         tb_writer = gui = None
@@ -638,22 +664,18 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
 
     loader = CameraLoader(scene.get_train_cameras(),
                           resolution_arg=model_cfg.resolution, device=dev)
-    state = StepState(params=model.params, flame_tr=flame_tr, mu=mu, nu=nu,
-                      count=count, max_radii2d=model.max_radii2d,
-                      grad_accum=model.xyz_gradient_accum, denom=model.denom)
-    if mesh is not None:
-        state = shard_state(state, mesh)
-        # whether rank 0 serves the viewer, known to every rank
-        serving = torch.tensor([int(gui is not None)], device=dev)
-        dist.broadcast(serving, 0)
-        serving = bool(serving.item())
+    state = shard_state(StepState(
+        params=model.params, flame_tr=flame_tr, mu=mu, nu=nu, count=count,
+        max_radii2d=model.max_radii2d, grad_accum=model.xyz_gradient_accum,
+        denom=model.denom), mesh)
+    # whether rank 0 serves the viewer, known to every rank
+    serving = broadcast_flag(gui is not None, mesh, dev)
 
     def full_state() -> StepState:
         """The full state, written back into `model` for the host code
         (the step updated the tensors in place; the assignments only name
         them); under a mesh a gather of the shards."""
-        full = state if mesh is None else gather_state(
-            state, mesh, model.num_gaussians)
+        full = gather_state(state, mesh, model.num_gaussians)
         model.params = full.params
         model.max_radii2d = full.max_radii2d
         model.xyz_gradient_accum = full.grad_accum
@@ -671,17 +693,12 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
 
     try:
         for iteration in range(first_iter + 1, opt_cfg.iterations + 1):
-            if mesh is None and gui is not None:
-                gui_poll(gui, model, state, flame_fixed, pipe_cfg, iteration,
-                         opt_cfg.iterations, gui_fns)
-            elif mesh is not None and serving:
+            if serving:
                 # a gather only while a client is connected to rank 0
                 if gui is not None and gui.conn is None:
                     gui.try_connect()
-                busy = torch.tensor([int(gui is not None and
-                                         gui.conn is not None)], device=dev)
-                dist.broadcast(busy, 0)
-                if busy.item():
+                if broadcast_flag(gui is not None and gui.conn is not None,
+                                  mesh, dev):
                     full = gather_state(state, mesh, model.num_gaussians)
                     if gui is not None:
                         gui_poll(gui, model, full, flame_fixed, pipe_cfg,
@@ -697,27 +714,20 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
             if iteration % 1000 == 0:           # SH warmup
                 model.one_up_sh_degree()
 
-            if mesh is None:
-                cam, gt = next(loader)
-                batch = [cam]
-            else:
-                # every rank draws the whole batch; each takes its group's
-                views = [next(loader) for _ in range(n_data)]
-                batch = [c for c, _ in views]
-                sizes = {c.resolution(model_cfg.resolution) for c in batch}
-                if len(sizes) != 1:
-                    raise ValueError("a data-parallel batch needs one "
-                                     f"resolution, got {sorted(sizes)}")
-                cam, gt = views[mesh.data_index]
+            # every rank draws the whole batch; each takes its group's
+            views = [next(loader) for _ in range(n_data)]
+            batch = [c for c, _ in views]
+            sizes = {c.resolution(model_cfg.resolution) for c in batch}
+            if len(sizes) != 1:
+                raise ValueError("a data-parallel batch needs one "
+                                 f"resolution, got {sorted(sizes)}")
+            cam, gt = views[mesh.data_index]
             w, h = cam.resolution(model_cfg.resolution)
             key = (w, h, model.active_sh_degree)
             if key not in step_fns:
                 step_fns[key] = make_train_step(
                     model, opt_cfg, pipe_cfg, w, h, model.active_sh_degree,
-                    model.num_timesteps) if mesh is None else \
-                    make_parallel_train_step(
-                        mesh, model, opt_cfg, pipe_cfg, w, h,
-                        model.active_sh_degree)
+                    model.num_timesteps, mesh)
             gt_key = (cam.image_path or (cam.camera_id, cam.timestep), w, h)
             gt_dev = gt_cache.get(gt_key, gt)
             bg = bg_cache.get(cam.bg.tobytes())
@@ -786,7 +796,7 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                          or iteration in checkpoint_iterations)
             # under a mesh the host code works on the gathered full state,
             # sharded again at the end of the iteration
-            if mesh is None or host_work:
+            if mesh.local or host_work:
                 state = full_state()
             if bound:
                 model.merge_flame_trainable(state.flame_tr)
@@ -844,7 +854,7 @@ def training(model_cfg: ModelConfig, opt_cfg: OptimizationConfig,
                 print(f"[ITER {iteration}] Saving Checkpoint")
                 save_checkpoint(model, state, iteration, os.path.join(
                     model_cfg.model_path, f"chkpnt{iteration}.npz"))
-            if mesh is not None and host_work:
+            if host_work:
                 state = shard_state(state, mesh)
     finally:
         loader.stop()

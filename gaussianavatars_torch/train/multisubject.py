@@ -108,11 +108,9 @@ class MultiSubjectTrainer:
             for i in self.mine:
                 cam, gt, bg, timestep = batch_fn(i, iteration)
                 timesteps[i] = int(timestep)
-                n = self.models[i].num_gaussians
                 self.states[i], turn, _ = self.steps[i](
                     self.states[i], self.flame_fixed[i],
-                    self.models[i].binding[self.mesh.shard(n)], cam, gt, bg,
-                    timesteps[i], lrs, n)
+                    self.models[i].binding, cam, gt, bg, timesteps[i], lrs)
                 turns.append(turn)
             losses = {k: sum(t[k] for t in turns) / len(turns)
                       for k in turns[0]}

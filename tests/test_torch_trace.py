@@ -1,11 +1,11 @@
 """The port's tracer (`gaussianavatars_torch/utils/trace.py`) on the CPU.
 
 With the tracer off, the `mark` hook of the train step (bound and
-unbound) and the render is called with the stage names in the order the
-benchmark and the chip smoke test read, no record is kept and no profiler
-range is entered. With it on, the spans of a step and a render nest under
-their roots with one iteration id a call, self time is the duration less
-the children's, FLAME's skinning counts no host sync, each binning 2 and
+unbound, and the multi-subject step on the local mesh) and the render is
+called with the stage names in the order the benchmark and the chip smoke
+test read, no record is kept and no profiler range is entered. With it
+on, the spans of a step and a render nest under their roots with one
+iteration id a call, self time is the duration less the children's, FLAME's skinning counts no host sync, each binning 2 and
 `to_wire` 1, every
 span has its `ga:` range under a CPU `torch.profiler` within 2 ms of the
 record put on the trace's clock, and `training` under `profile_trace`
@@ -32,6 +32,10 @@ from gaussianavatars_torch.ops.binning import (
     compute_tile_rects_ext,
 )
 from gaussianavatars_torch.ops.projection import project_gaussians
+from gaussianavatars_torch.parallel import make_mesh
+from gaussianavatars_torch.parallel.sharded import (
+    make_multisubject_train_step,
+)
 from gaussianavatars_torch.train.loop import (
     camera_arrays,
     initial_state,
@@ -54,6 +58,8 @@ GOLDEN = {
                    "backward", "adam", "stats"],
     "unbound_step": ["binding", *RASTER, "forward", "backward", "adam",
                      "stats"],
+    "multisubject_step": ["flame_frames", "binding", *RASTER, "forward",
+                          "backward", "adam", "stats"],
     "render": ["flame_frames", "binding", *RASTER],
 }
 PARENT = {"flame_frames": "train_step", "binding": "train_step",
@@ -89,14 +95,21 @@ def models():
 
 
 def _step(models, kind):
-    m = models[kind]
+    """A step of the bound or unbound model, or the multi-subject step of
+    the bound one on the local mesh."""
+    m = models["unbound" if kind == "unbound" else "bound"]
     opt = OptimizationConfig()
     st = initial_state(m)
     fixed = ({k: v for k, v in m.flame_param.items() if k not in st.flame_tr}
-             if kind == "bound" else {})
+             if kind != "unbound" else {})
     lrs = lr_pytree(opt, 1e-3, st.flame_tr, 1.0)
-    step = make_train_step(m, opt, PipelineConfig(tile_size=TILE), W, H,
-                           m.active_sh_degree, m.num_timesteps)
+    pipe = PipelineConfig(tile_size=TILE)
+    if kind == "multisubject":
+        step = make_multisubject_train_step(make_mesh(1, 1), m, opt, pipe, W,
+                                            H, m.active_sh_degree)
+    else:
+        step = make_train_step(m, opt, pipe, W, H, m.active_sh_degree,
+                               m.num_timesteps)
     gt = torch.as_tensor(np.random.default_rng(2).random((3, H, W)).astype(
         np.float32))
 

@@ -12,6 +12,10 @@ Tolerances:
   * total loss of three steps: rtol 1e-3. Adam's first steps divide each
     gradient by its own magnitude, so a near-zero gradient whose sign
     differs between the two packages moves its parameter by a full lr.
+
+On the local mesh the sharded and multi-subject steps are the same body:
+their states, losses and instance totals over three steps equal
+`make_train_step`'s bit for bit, bound and unbound.
 """
 
 import numpy as np
@@ -40,6 +44,11 @@ from gaussianavatars_torch.config import OptimizationConfig, PipelineConfig
 from gaussianavatars_torch.convert import from_jax_arrays
 from gaussianavatars_torch.models.gaussians import GaussianModel, GaussianParams
 from gaussianavatars_torch.ops.projection import CameraParams
+from gaussianavatars_torch.parallel import make_mesh
+from gaussianavatars_torch.parallel.sharded import (
+    make_multisubject_train_step,
+    make_sharded_train_step,
+)
 from gaussianavatars_torch.train import optim
 from gaussianavatars_torch.train.loop import (
     camera_arrays,
@@ -252,6 +261,68 @@ def test_unbound_step_matches_jax():
         got = getattr(tout.mu["gauss"], k).numpy()
         assert _rel(got, np.asarray(getattr(jout.mu["gauss"], k))) \
             <= GRAD_REL, k
+
+
+LOCAL_STEPS = {
+    "solo": lambda m, *args: make_train_step(m, *args, m.num_timesteps),
+    "sharded": lambda m, *args: make_sharded_train_step(
+        make_mesh(1, 1), m, *args),
+    "multisubject": lambda m, *args: make_multisubject_train_step(
+        make_mesh(1, 1), m, *args),
+}
+
+
+def _three_local_steps(bound, make):
+    """Three steps of a fresh model through `LOCAL_STEPS[make]` at 64x48,
+    through a narrow field of view (few Gaussians on screen, so the plain
+    CPU blend stays quick): the 1-per-face bound bench avatar (FLAME
+    regularizers at their default weight, 0) or a 2000-Gaussian cloud.
+    Returns each step's (state, losses, instance total)."""
+    if bound:
+        m = tbench.make_bound_bench_model(sh_degree=1, n_per_face=1,
+                                          device="cpu")
+    else:
+        m = tbench.scene_to_model(tbench.make_bench_scene(n=2000,
+                                                          device="cpu"))
+    opt = OptimizationConfig()
+    state = initial_state(m)
+    fixed = ({k: v for k, v in m.flame_param.items()
+              if k not in state.flame_tr} if bound else {})
+    lrs = lr_pytree(opt, 1e-3, state.flame_tr, 1.0)
+    step = LOCAL_STEPS[make](m, opt, PipelineConfig(tile_size=16), W, H,
+                             m.active_sh_degree)
+    cam = camera_arrays(tbench.make_camera(W, H, fovx=0.08, dist=1.0,
+                                           device="cpu"))
+    gt, bg = torch.from_numpy(_gt()), torch.ones(3)
+    out = []
+    for timestep in (1, 2, 3):
+        state, losses, total = step(state, fixed, m.binding, cam, gt, bg,
+                                    timestep, lrs)
+        out.append((_clone(state), losses, total))
+    return out
+
+
+@pytest.fixture(scope="module")
+def solo_steps():
+    return {bound: _three_local_steps(bound, "solo")
+            for bound in (True, False)}
+
+
+@pytest.mark.parametrize("make", ["sharded", "multisubject"])
+@pytest.mark.parametrize("bound", [True, False], ids=["bound", "unbound"])
+def test_local_mesh_steps_equal_the_train_step(solo_steps, bound, make):
+    for (ref, ref_losses, ref_total), (got, losses, total) in zip(
+            solo_steps[bound], _three_local_steps(bound, make)):
+        assert total == ref_total > 0
+        assert list(losses) == list(ref_losses)
+        for k, v in losses.items():
+            assert torch.equal(v, ref_losses[k]), k
+        leaves, ref_leaves = (optim.tree_leaves(got),
+                              optim.tree_leaves(ref))
+        assert len(leaves) == len(ref_leaves)
+        for a, b in zip(leaves, ref_leaves):
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b)
 
 
 def test_bench_entry_point_on_cpu():

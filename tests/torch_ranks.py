@@ -165,11 +165,10 @@ def train_step(rank, world, root, n_data, width, height, tile_size,
                                                  binning=binning),
                 width, height, model.max_sh_degree)
     v = np.load(f"{root}/views.npz")
-    n = model.num_gaussians
     state, losses, instances = step(
-        state, fixed, model.binding[mesh.shard(n)], _camera(v, f"c{d}_"),
+        state, fixed, model.binding, _camera(v, f"c{d}_"),
         torch.from_numpy(v["gts"][d]), torch.from_numpy(v["bgs"][d]),
-        int(v["timesteps"][d]), lr_pytree(opt, 1e-3, state.flame_tr, 1.0), n)
+        int(v["timesteps"][d]), lr_pytree(opt, 1e-3, state.flame_tr, 1.0))
     out = {"count": state.count, "instances": instances, **before,
            "max_radii2d": state.max_radii2d.numpy(),
            "grad_accum": state.grad_accum.numpy(),
